@@ -60,6 +60,11 @@ def pytest_configure(config):
         "slow: large one-time kernel compiles (persistently cached); "
         "deselect with -m 'not slow' for the fast conformance tier",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (the PyTorch port's CUDA kernels); "
+        "skips with a reason where torch.cuda.is_available() is false",
+    )
 
 
 def pytest_report_header(config):
