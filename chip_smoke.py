@@ -5,19 +5,29 @@
 Phases, in order (any failure exits non-zero and prints no result):
 
 1. the card's name and power limit (``nvidia-smi``), torch/CUDA/nvcc versions;
-2. build every CUDA kernel of the path from ``go_ibft_tpu_torch/csrc``;
-3. hold each kernel against its plain PyTorch version on the card,
-   bit-exact, at the batch sizes the path uses and beyond;
-4. certify a 100-validator round (seed 0) through both entry points,
+2. build every CUDA kernel from ``go_ibft_tpu_torch/csrc`` (one ``nvcc``
+   per source, all at once) and print ptxas' registers and spills;
+3. build the signed 100- and 300-validator rounds, then hold each kernel,
+   through the wrapper the main path calls, against its plain PyTorch
+   version on the card, bit-exact: ``keccak_f1600`` on random states,
+   ``keccak256_sponge`` at 1-3 blocks with ragged block counts,
+   ``secp256k1_recover`` on the seeded recovery lanes (real signatures plus
+   every adversarial lane of ``bench/lanes.py``), each at the batch sizes
+   the path uses and beyond, the recovery also against the host oracle;
+   then the sponge and the recovery on the two rounds' own inputs;
+4. certify the 100-validator round (seed 0) through both entry points,
    ``ops.quorum.round_certify`` and ``DeviceBatchVerifier.certify_round``:
    every mask true, both quorums reached, masks equal to the host oracle
-   (``crypto.ecdsa.recover``); the kernels' launch counts are read here;
+   (``crypto.ecdsa.recover``); the kernels' launch counts are set to 0
+   before these two calls and read after them;
 5. the 300-validator round with 30 % bad signatures: masks equal the
    expected masks, quorum reached (210 >= 201);
 6. a 100-validator round with 34 bad signatures: no quorum;
-7. time phases 4-5 with CUDA events and the host clock (median of 10
-   calls after warm-up), and profile one 100-validator call: device
-   kernels, device busy time, idle share;
+7. time each kernel at the main path's own inputs (CUDA events) beside its
+   plain version and its bound; time phases 4-5 with CUDA events and the
+   host clock (median of 20 calls after warm-up), and profile one
+   100-validator call: device kernels (fewer than 10,000), device busy
+   time, idle share;
 8. print the ``kernels`` line, then the result line.
 
 It imports nothing of JAX or of the JAX package.  It needs one card and
@@ -40,15 +50,41 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S_32BIT = 67e12
 
-# The main path's shapes (payload digests and address hashes of the 100-
-# and 300-validator rounds: 128, 256, 512, 1024 states) and ragged ones.
+# Batch sizes held bit-exact: the main path's (payload digests of the 100-
+# and 300-validator rounds: 128 and 512 messages; recovery: 256 and 1024
+# lanes) and ragged ones.
 KECCAK_BATCHES = (1, 128, 129, 256, 512, 1024, 4096)
+SPONGE_BATCHES = (1, 128, 129, 256, 512, 1024)
+SPONGE_BLOCKS = (1, 2, 3)
+RECOVER_BATCHES = (1, 33, 256, 1024)
 TIMED_BATCHES = (128, 256, 1024, 4096)
 # 64-bit operations in one Keccak-f round: theta (20 xor + 5 rot + 5 xor +
 # 25 xor), rho (24 rot), chi (25 x not/and/xor), iota (1 xor); each is two
 # 32-bit operations.
 KECCAK_OPS_PER_STATE = 24 * 2 * (20 + 5 + 5 + 25 + 24 + 75 + 1)
 KECCAK_BYTES_PER_STATE = 2 * 25 * 8  # read once, written once
+# 32-bit integer operations of csrc/secp256k1_recover.cu, counted from its
+# source, smaller terms (field additions, selects) left out so that the
+# bound stays a lower bound.  A 256 x 256-bit product is 64 multiply-adds of
+# 32 x 32 -> 64 bits, each a multiply (2 ops) and a 64-bit add (2 ops); the
+# fold mod P adds about 64 more; a Montgomery product mod N is two such
+# product passes.
+OPS_WIDE_PRODUCT = 64 * 4
+OPS_FIELD_MUL = OPS_WIDE_PRODUCT + 64
+OPS_MONT_MUL = 2 * OPS_WIDE_PRODUCT
+# Field multiplications of a lane that passes the range checks, fixed part:
+# y^2 (2), the square root (14 table + 252 squarings + 63 window products),
+# its check (1), d*R for d <= 15 (a doubling of 7 and 13 mixed additions of
+# 11), 128 ladder doublings of 7, the inversion of Z (14 + 252 + 64) and the
+# affine map (4).  Each nonzero window digit adds a mixed addition (11) for
+# the G and phi(G) streams, a Jacobian addition (16) for R and 17 for phi(R).
+RECOVER_FIXED_FIELD_MULS = 2 + 329 + 1 + (7 + 13 * 11) + 128 * 7 + 330 + 4
+RECOVER_DIGIT_FIELD_MULS = (11, 11, 16, 17)
+# r to Montgomery form (1), r^-1 (14 + 252 + 62), u1 and u2 (2); two GLV
+# splits of 2 wide products and 4 low products each.
+RECOVER_MONT_MULS = 1 + 328 + 2
+RECOVER_WIDE_PRODUCTS = 2 * (2 + 4)
+RECOVER_BYTES_PER_LANE = (8 + 20 + 20 + 1) * 4 + (20 + 20 + 5) * 4 + 1  # in + out
 
 
 def check(cond: bool, what: str) -> None:
@@ -129,6 +165,35 @@ def profile_call(fn) -> dict:
     }
 
 
+def bound(nbytes: int, ops: int) -> dict:
+    """The least time for ``nbytes`` moved and ``ops`` 32-bit operations."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / OPS_PER_S_32BIT * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def recover_ops(z, r, s, v, n_order, glv_halves) -> int:
+    """32-bit operations the recovery of these lanes needs (Python ints):
+    lanes that fail the range checks need none; the ladder's additions
+    follow each lane's own window digits."""
+    field_muls = mont_muls = wide = perms = 0
+    for zi, ri, si, vi in zip(z, r, s, v):
+        if not (0 < ri < n_order and 0 < si < n_order and vi in (0, 1)):
+            continue
+        rinv = pow(ri, -1, n_order)
+        u1, u2 = (-zi) * rinv % n_order, si * rinv % n_order
+        halves = [abs(h) for u in (u1, u2) for h in glv_halves(u)]
+        field_muls += RECOVER_FIXED_FIELD_MULS
+        for h, cost in zip(halves, RECOVER_DIGIT_FIELD_MULS):
+            field_muls += cost * sum(1 for w in range(33) if (h >> (4 * w)) & 15)
+        mont_muls += RECOVER_MONT_MULS
+        wide += RECOVER_WIDE_PRODUCTS
+        perms += 1
+    return (field_muls * OPS_FIELD_MUL + mont_muls * OPS_MONT_MUL + wide * OPS_WIDE_PRODUCT
+            + perms * KECCAK_OPS_PER_STATE)
+
+
 def host_masks(rnd, ecdsa, keccak256, height):
     """The host oracle's masks: recover each lane with Python ints."""
     members = {bytes(m.sender) for m in rnd.prepares}
@@ -153,6 +218,16 @@ def host_masks(rnd, ecdsa, keccak256, height):
     return prep, seal
 
 
+def main_path_inputs(rargs, quorum):
+    """The inputs the main path gives the kernels in ``round_certify(*rargs)``:
+    the payload blocks and block counts, and the recovery lanes of both
+    phases (digest words, then the proposal hash)."""
+    blocks, counts = rargs[0], rargs[1]
+    zw = torch.cat([quorum.digest_words(blocks, counts), rargs[7]])
+    r, s, v = (torch.cat([rargs[i], rargs[i + 6]]) for i in (2, 3, 4))
+    return blocks, counts, zw, r, s, v
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write every measurement to this file")
@@ -162,13 +237,17 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
 
+    import numpy as np
+
     from go_ibft_tpu_torch import _build, convert
-    from go_ibft_tpu_torch.bench import build_signed_round
+    from go_ibft_tpu_torch.bench import build_recovery_lanes, build_signed_round
+    from go_ibft_tpu_torch.bench.lanes import glv_halves
     from go_ibft_tpu_torch.crypto import ecdsa
     from go_ibft_tpu_torch.crypto.backend import ECDSABackend
     from go_ibft_tpu_torch.crypto.keccak import keccak256
+    from go_ibft_tpu_torch.ops import ecrecover, keccak_f1600, quorum
+    from go_ibft_tpu_torch.ops import fields as tf
     from go_ibft_tpu_torch.ops import keccak as tk
-    from go_ibft_tpu_torch.ops import keccak_f1600, quorum
     from go_ibft_tpu_torch.verify import DeviceBatchVerifier
 
     report: dict = {}
@@ -189,54 +268,107 @@ def main() -> int:
     paths = _build.build_all()
     report["build_s"] = time.perf_counter() - t0
     log(f"[2] built {sorted(paths)} in {report['build_s']:.1f}s")
+    report["ptxas"] = []
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                report["ptxas"].append(f"{name}: {line.strip()}")
                 log(f"    {name}: {line.strip()}")
 
-    # -- 3. kernel vs plain --------------------------------------------
-    gen = torch.Generator(device="cpu").manual_seed(0)
-    max_err = 0
-    for b in KECCAK_BATCHES:
-        st = torch.randint(-(2**31), 2**31, (b, 25, 2), dtype=torch.int32, generator=gen).to(dev)
-        out = keccak_f1600.launch(st)
-        torch.cuda.synchronize()
-        ref = keccak_f1600.keccak_f_plain(st)
-        err = int((out.to(torch.int64) - ref.to(torch.int64)).abs().max())
-        max_err = max(max_err, err)
-        check(torch.equal(out, ref), f"keccak_f1600 kernel == plain at B={b}")
-    log(f"[3] keccak_f1600 bit-exact against plain at B={KECCAK_BATCHES}")
-    timing = {}
-    for b in TIMED_BATCHES:
-        st = torch.randint(-(2**31), 2**31, (b, 25, 2), dtype=torch.int32, generator=gen).to(dev)
-        kern = cuda_time_ms(lambda st=st: keccak_f1600.launch(st), 200)
-        plain = cuda_time_ms(lambda st=st: keccak_f1600.keccak_f_plain(st), 5)
-        bytes_ms = b * KECCAK_BYTES_PER_STATE / HBM_BYTES_PER_S * 1e3
-        ops_ms = b * KECCAK_OPS_PER_STATE / OPS_PER_S_32BIT * 1e3
-        timing[b] = {
-            "ms": kern, "plain_ms": plain, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        }
-        log(f"    B={b}: kernel {kern:.5f} ms, plain {plain:.3f} ms, "
-            f"bound {timing[b]['bound_ms']:.3g} ms ({timing[b]['bound_by']})")
-    report["keccak_timing"] = timing
-
-    # -- 4. the 100-validator round through both entry points ----------
+    # -- 3. the rounds; kernel vs plain --------------------------------
     t0 = time.perf_counter()
     rnd100 = build_signed_round(100, seed=0)
-    w100 = rnd100.pack()
     src100 = ECDSABackend.static_validators({m.sender: 1 for m in rnd100.prepares})
-    args100 = convert.round_args(w100)
+    args100 = convert.round_args(rnd100.pack())
     verifier100 = DeviceBatchVerifier(src100)
-    log(f"[4] built the signed 100-validator round in {time.perf_counter() - t0:.1f}s")
+    rnd300 = build_signed_round(300, corrupt_frac=0.3, seed=0)
+    src300 = ECDSABackend.static_validators({m.sender: 1 for m in rnd300.prepares})
+    args300 = convert.round_args(rnd300.pack())
+    verifier300 = DeviceBatchVerifier(src300)
+    log(f"[3] built the signed 100- and 300-validator rounds in {time.perf_counter() - t0:.1f}s")
 
-    tk.keccak_f.launches = 0
+    def exact(out, ref, what):
+        check(torch.equal(out, ref), what)
+        return int((out.to(torch.int64) - ref.to(torch.int64)).abs().max()) if out.numel() else 0
+
+    def hold_recovery(ins, what):
+        """``ecrecover.recover`` against ``recover_plain`` on ``ins``: ``ok``
+        everywhere, ``x``, ``y``, ``addr`` on the lanes that recover."""
+        x, y, addr, ok = ecrecover.recover(*ins)
+        torch.cuda.synchronize()
+        px, py, paddr, pok = ecrecover.recover_plain(*ins)
+        exact(ok, pok, what + ": ok")
+        for got, ref, part in ((x, px, "x"), (y, py, "y"), (addr, paddr, "addr")):
+            err["secp256k1_recover"] = max(err["secp256k1_recover"],
+                                           exact(got[pok], ref[pok], f"{what}: {part}"))
+        return x, y, ok
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    err = {"keccak_f1600": 0, "keccak256_sponge": 0, "secp256k1_recover": 0}
+    for b in KECCAK_BATCHES:
+        st = torch.randint(-(2**31), 2**31, (b, 25, 2), dtype=torch.int32, generator=gen).to(dev)
+        out = tk.keccak_f(st)
+        torch.cuda.synchronize()
+        err["keccak_f1600"] = max(err["keccak_f1600"], exact(
+            out, keccak_f1600.keccak_f_plain(st), f"keccak_f1600 kernel == plain at B={b}"))
+    log(f"[3] keccak_f1600 bit-exact against plain at B={KECCAK_BATCHES}")
+    for nb in SPONGE_BLOCKS:
+        for b in SPONGE_BATCHES:
+            blocks = torch.randint(-(2**31), 2**31, (b, nb, 17, 2), dtype=torch.int32,
+                                   generator=gen).to(dev)
+            counts = torch.randint(1, nb + 1, (b,), dtype=torch.int32, generator=gen).to(dev)
+            out = tk.keccak256_blocks(blocks, counts)
+            torch.cuda.synchronize()
+            err["keccak256_sponge"] = max(err["keccak256_sponge"], exact(
+                out, keccak_f1600.keccak256_sponge_plain(blocks, counts),
+                f"keccak256_sponge kernel == plain at nb={nb}, B={b}"))
+    log(f"[3] keccak256_sponge bit-exact against plain at nb={SPONGE_BLOCKS}, "
+        f"B={SPONGE_BATCHES}, ragged block counts")
+    lanes = build_recovery_lanes(8, seed=0)
+    expect = lanes.expected()
+    for b in RECOVER_BATCHES:
+        arr = lanes.arrays(b)
+        for zname in ("zw", "z_limbs"):
+            ins = [torch.from_numpy(np.ascontiguousarray(arr[k])).to(dev)
+                   for k in (zname, "r", "s", "v")]
+            x, y, ok = hold_recovery(ins, f"secp256k1_recover kernel == plain at B={b}, "
+                                          f"z as {zname}")
+            oks = ok.cpu().numpy()
+            xs, ys = tf.from_limbs(x), tf.from_limbs(y)
+            for i, lane in enumerate(arr["lane"]):
+                e = expect[lane]
+                check(bool(oks[i]) == (e is not None) and (e is None or (xs[i], ys[i]) == e),
+                      f"secp256k1_recover == host oracle, lane {lanes.labels[lane]!r}, B={b}")
+    log(f"[3] secp256k1_recover bit-exact against plain and the host oracle at "
+        f"B={RECOVER_BATCHES} ({len(lanes)} lanes: {', '.join(sorted(set(lanes.labels)))})")
+    for label, rargs in (("100v", args100), ("300v_30bad", args300)):
+        blocks, counts, zw, r, s, v = main_path_inputs(rargs, quorum)
+        out = tk.keccak256_blocks(blocks, counts)
+        torch.cuda.synchronize()
+        err["keccak256_sponge"] = max(err["keccak256_sponge"], exact(
+            out, keccak_f1600.keccak256_sponge_plain(blocks, counts),
+            f"keccak256_sponge kernel == plain on the {label} round's payloads"))
+        _, _, ok = hold_recovery((zw, r, s, v),
+                                 f"secp256k1_recover kernel == plain on the {label} round's lanes")
+        log(f"[3] {label} round: sponge at {tuple(blocks.shape)} and recovery at "
+            f"{v.numel()} lanes ({int(ok.sum())} recover) bit-exact against plain")
+    report["max_abs_err"] = err
+
+    # -- 4. the 100-validator round through both entry points ----------
+    counters = {
+        "keccak_f1600": tk.keccak_f,
+        "keccak256_sponge": tk.keccak256_blocks,
+        "secp256k1_recover": ecrecover.recover,
+    }
+    for fn in counters.values():
+        fn.launches = 0
     out = quorum.round_certify(*args100)
     pm, pr, sm, sr = verifier100.certify_round(
         rnd100.prepares, rnd100.proposal_hash, rnd100.seals, rnd100.height
     )
-    launches = tk.keccak_f.launches
-    check(launches > 0, "keccak_f1600 launched on the main path")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    check(launches["keccak256_sponge"] > 0, "keccak256_sponge launched on the main path")
+    check(launches["secp256k1_recover"] > 0, "secp256k1_recover launched on the main path")
     n = rnd100.n_validators
     rc = [x.cpu().numpy() for x in out]
     check(bool(rc[0][:n].all() and rc[2][:n].all()), "round_certify: every 100-validator lane valid")
@@ -246,21 +378,18 @@ def main() -> int:
     hp, hs = host_masks(rnd100, ecdsa, keccak256, rnd100.height)
     check(list(pm) == hp and list(sm) == hs, "certify_round masks == host oracle")
     check(list(rc[0][:n]) == hp and list(rc[2][:n]) == hs, "round_certify masks == host oracle")
-    log(f"[4] 100 validators: masks == host oracle, quorum reached; keccak_f launches {launches}")
-    report["keccak_launches_main_path"] = launches
+    log(f"[4] 100 validators: masks == host oracle, quorum reached; launches {launches}")
+    report["launches_main_path"] = launches
 
     # -- 5. 300 validators, 30 % bad -----------------------------------
-    t0 = time.perf_counter()
-    rnd300 = build_signed_round(300, corrupt_frac=0.3, seed=0)
-    w300 = rnd300.pack()
-    src300 = ECDSABackend.static_validators({m.sender: 1 for m in rnd300.prepares})
-    args300 = convert.round_args(w300)
-    verifier300 = DeviceBatchVerifier(src300)
-    log(f"[5] built the signed 300-validator round in {time.perf_counter() - t0:.1f}s")
+    for fn in counters.values():
+        fn.launches = 0
     out = [x.cpu().numpy() for x in quorum.round_certify(*args300)]
     pm, pr, sm, sr = verifier300.certify_round(
         rnd300.prepares, rnd300.proposal_hash, rnd300.seals, rnd300.height
     )
+    check(tk.keccak256_blocks.launches > 0 and ecrecover.recover.launches > 0,
+          "300 validators: the sponge and recovery kernels launched")
     n = 300
     for name, got in (("round_certify", (out[0][:n], out[2][:n])), ("certify_round", (pm, sm))):
         check(list(got[0]) == list(rnd300.expected_prepare_mask), f"{name}: prepare mask == expected")
@@ -270,17 +399,59 @@ def main() -> int:
     log("[5] 300 validators, 30% bad: masks == expected, 210 >= 201 reached")
 
     # -- 6. 34 bad of 100: no quorum -----------------------------------
+    for fn in counters.values():
+        fn.launches = 0
     rnd34 = build_signed_round(100, corrupt_frac=0.34, seed=0)
     out = [x.cpu().numpy() for x in quorum.round_certify(*convert.round_args(rnd34.pack()))]
     pm, pr, sm, sr = verifier100.certify_round(
         rnd34.prepares, rnd34.proposal_hash, rnd34.seals, rnd34.height
     )
+    check(tk.keccak256_blocks.launches > 0 and ecrecover.recover.launches > 0,
+          "34 bad: the sponge and recovery kernels launched")
     check(list(pm) == list(rnd34.expected_prepare_mask) and int(pm.sum()) == 66, "34-bad prepare mask")
     check(list(sm) == list(rnd34.expected_seal_mask), "34-bad seal mask")
     check(not (pr or sr or bool(out[1]) or bool(out[3])), "66 < 67: neither quorum reached")
     log("[6] 100 validators, 34 bad: 66 < 67, neither quorum reached")
 
     # -- 7. timing and launch counts -----------------------------------
+    # Each kernel at the main path's own inputs: the payload digests of the
+    # 100- and 300-validator rounds (128 and 512 messages of 2 blocks) and
+    # their recovery lanes (PREPARE + COMMIT: 256 and 1024).
+    timing = {"keccak_f1600": {}, "keccak256_sponge": {}, "secp256k1_recover": {}}
+    for b in TIMED_BATCHES:
+        st = torch.randint(-(2**31), 2**31, (b, 25, 2), dtype=torch.int32, generator=gen).to(dev)
+        timing["keccak_f1600"][b] = {
+            "ms": cuda_time_ms(lambda st=st: keccak_f1600.launch(st), 200),
+            "plain_ms": cuda_time_ms(lambda st=st: keccak_f1600.keccak_f_plain(st), 5),
+            **bound(b * KECCAK_BYTES_PER_STATE, b * KECCAK_OPS_PER_STATE),
+        }
+    for label, rargs in (("100v", args100), ("300v_30bad", args300)):
+        blocks, counts, zw, r, s, v = main_path_inputs(rargs, quorum)
+        b, nb = blocks.shape[0], blocks.shape[1]
+        absorbed = int(counts.clamp(0, nb).sum())
+        timing["keccak256_sponge"][label] = {
+            "batch": b, "blocks": nb,
+            "ms": cuda_time_ms(lambda: keccak_f1600.launch_sponge(blocks, counts), 200),
+            "plain_ms": cuda_time_ms(lambda: keccak_f1600.keccak256_sponge_plain(blocks, counts), 5),
+            **bound(absorbed * 136 + b * 4 + b * 32,  # blocks absorbed, counts, digests
+                    absorbed * (KECCAK_OPS_PER_STATE + 17 * 2)),
+        }
+        ints = [tf.from_limbs(t) for t in (r, s)]
+        zs = [int.from_bytes(np.ascontiguousarray(row).astype("<u4").tobytes(), "little")
+              for row in zw.cpu().numpy()]
+        ops = recover_ops(zs, ints[0], ints[1], [int(t) for t in v.cpu()], ecdsa.N, glv_halves)
+        timing["secp256k1_recover"][label] = {
+            "batch": v.numel(),
+            "ms": cuda_time_ms(lambda: ecrecover.launch(zw, r, s, v), 20),
+            "plain_ms": cuda_time_ms(lambda: ecrecover.recover_plain(zw, r, s, v), 1),
+            **bound(v.numel() * RECOVER_BYTES_PER_LANE, ops),
+        }
+    for name, rows in timing.items():
+        for key, t in rows.items():
+            log(f"[7] {name} at {key}: kernel {t['ms']:.5f} ms, plain {t['plain_ms']:.3f} ms, "
+                f"bound {t['bound_ms']:.3g} ms ({t['bound_by']})")
+    report["kernel_timing"] = timing
+
     medians = {}
     for label, rnd, verifier, rargs in (
         ("100v", rnd100, verifier100, args100),
@@ -292,50 +463,62 @@ def main() -> int:
         def call_program(rargs=rargs):
             return [bool(x) if x.dim() == 0 else x.cpu() for x in quorum.round_certify(*rargs)]
 
-        host_ms, dev_ms = median_ms(call_round, calls=10)
-        prog_host_ms, prog_dev_ms = median_ms(call_program, calls=3)
+        host_ms, dev_ms = median_ms(call_round, calls=20)
+        prog_host_ms, prog_dev_ms = median_ms(call_program, calls=20)
         medians[label] = {
             "certify_round_host_ms": host_ms, "certify_round_event_ms": dev_ms,
             "round_certify_host_ms": prog_host_ms, "round_certify_event_ms": prog_dev_ms,
         }
-        log(f"[7] {label}: certify_round median of 10 {host_ms:.1f} ms host / {dev_ms:.1f} ms "
-            f"events; round_certify median of 3 {prog_host_ms:.1f} / {prog_dev_ms:.1f} ms")
-    # The kernel count does not depend on the batch; profile the 100v round once.
-    t0 = time.perf_counter()
-    prof = profile_call(lambda: verifier100.certify_round(
-        rnd100.prepares, rnd100.proposal_hash, rnd100.seals, rnd100.height))
-    busy = prof["device_busy_ms"]
-    top = sorted(prof.pop("by_name_ms").items(), key=lambda kv: -kv[1])[:5]
-    prof["idle_share_vs_median"] = 1 - busy / medians["100v"]["certify_round_host_ms"]
-    prof["top_kernels_ms"] = top
-    medians["100v"]["profile"] = prof
-    log(f"[7] 100v profile: {prof['device_kernels']} kernels, {prof['launch_calls']} launch calls, "
-        f"device busy {busy:.1f} ms (idle {prof['idle_share_vs_median']:.3f} of the median call); "
-        f"profiling took {time.perf_counter() - t0:.0f}s")
-    for name, ms in top:
-        log(f"    {ms:9.2f} ms  {name[:90]}")
+        log(f"[7] {label}: certify_round median of 20 {host_ms:.3f} ms host / {dev_ms:.3f} ms "
+            f"events; round_certify median of 20 {prog_host_ms:.3f} / {prog_dev_ms:.3f} ms")
+    for label, rnd, verifier in (("100v", rnd100, verifier100), ("300v_30bad", rnd300, verifier300)):
+        t0 = time.perf_counter()
+        prof = profile_call(lambda rnd=rnd, verifier=verifier: verifier.certify_round(
+            rnd.prepares, rnd.proposal_hash, rnd.seals, rnd.height))
+        busy = prof["device_busy_ms"]
+        top = sorted(prof.pop("by_name_ms").items(), key=lambda kv: -kv[1])[:5]
+        prof["idle_share_vs_median"] = 1 - busy / medians[label]["certify_round_host_ms"]
+        prof["top_kernels_ms"] = top
+        medians[label]["profile"] = prof
+        log(f"[7] {label} profile: {prof['device_kernels']} kernels, {prof['launch_calls']} launch "
+            f"calls, device busy {busy:.3f} ms (idle {prof['idle_share_vs_median']:.3f} of the "
+            f"median call); profiling took {time.perf_counter() - t0:.0f}s")
+        for name, ms in top:
+            log(f"    {ms:9.4f} ms  {name[:90]}")
+    check(medians["100v"]["profile"]["device_kernels"] < 10_000,
+          "fewer than 10,000 kernels per 100-validator certify_round")
     st = torch.randint(-(2**31), 2**31, (256, 25, 2), dtype=torch.int32, generator=gen).to(dev)
     kprof = profile_call(lambda: [keccak_f1600.launch(st) for _ in range(50)])
     kern_dev_ms = sum(ms for name, ms in kprof["by_name_ms"].items() if "keccak" in name) / 50
-    timing[256]["device_ms_per_launch"] = kern_dev_ms
+    timing["keccak_f1600"][256]["device_ms_per_launch"] = kern_dev_ms
     log(f"[7] keccak_f1600 at B=256: {kern_dev_ms * 1e3:.2f} us on the card per launch (profiler)")
     report["medians"] = medians
 
     # -- 8. the kernels line and the result ----------------------------
-    main_b = 256  # the address hash of the 100-validator round: 2 x 128 lanes
+    main = {"keccak_f1600": timing["keccak_f1600"][256],  # PR 1's main-path size
+            "keccak256_sponge": timing["keccak256_sponge"]["100v"],
+            "secp256k1_recover": timing["secp256k1_recover"]["100v"]}
+    where = {
+        "keccak_f1600": ("go_ibft_tpu_torch/csrc/keccak_f1600.cu",
+                         "go_ibft_tpu/ops/pallas_keccak.py:131"),
+        "keccak256_sponge": ("go_ibft_tpu_torch/csrc/keccak_f1600.cu",
+                             "go_ibft_tpu/ops/keccak.py:179"),
+        "secp256k1_recover": ("go_ibft_tpu_torch/csrc/secp256k1_recover.cu",
+                              "go_ibft_tpu/ops/secp256k1.py:665"),
+    }
     kernels = [{
-        "name": "keccak_f1600",
+        "name": name,
         "route": "cuda",
-        "source": "go_ibft_tpu_torch/csrc/keccak_f1600.cu",
-        "replaces": "go_ibft_tpu/ops/pallas_keccak.py:131",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": timing[main_b]["ms"],
-        "plain_ms": timing[main_b]["plain_ms"],
-        "bound_ms": timing[main_b]["bound_ms"],
-        "bound_by": timing[main_b]["bound_by"],
+        "source": where[name][0],
+        "replaces": where[name][1],
+        "launches": launches[name],
+        "max_abs_err": err[name],
+        "ms": main[name]["ms"],
+        "plain_ms": main[name]["plain_ms"],
+        "bound_ms": main[name]["bound_ms"],
+        "bound_by": main[name]["bound_by"],
         "library_ms": None,
-    }]
+    } for name in counters]
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start
     if args.json:

@@ -4,11 +4,13 @@ Each source in ``csrc/`` is compiled by ``nvcc`` into a shared library with
 a plain C interface, loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o build/torch_kernels/<name>-<key>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -I csrc \
+         -o build/torch_kernels/<name>-<key>.so csrc/<name>.cu
 
 The build happens at first use, into ``build/torch_kernels/`` at the root of
-the checkout, keyed by a hash of the source and the flags, so a changed
-source rebuilds and an unchanged one loads.  :func:`build_all` starts one
+the checkout, keyed by a hash of the source, of every shared header
+(``csrc/*.cuh``) and of the flags, so a changed source or header rebuilds
+and an unchanged one loads.  :func:`build_all` starts one
 ``nvcc`` per source, all at once.  A failed build raises with the
 compiler's output; nothing falls back.
 """
@@ -28,14 +30,19 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + (
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),
 )
 
 # The C entry points of each source: name -> (argtypes, restype).
+_P = ctypes.c_void_p
 SIGNATURES = {
     "keccak_f1600": {
-        "keccak_f1600": (
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p],
+        "keccak_f1600": ([_P, _P, ctypes.c_longlong, _P], ctypes.c_int),
+        "keccak256_sponge": ([_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P], ctypes.c_int),
+    },
+    "secp256k1_recover": {
+        "secp256k1_recover": (
+            [_P, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P],
             ctypes.c_int,
         ),
     },
@@ -57,9 +64,11 @@ def find_nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{key}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, Path]:

@@ -9,9 +9,12 @@ bit may be set is masked afterwards.
 
 Two consumers, as in the JAX package: **payload digests** (``payload_no_sig``
 bytes packed on the host into padded rate blocks and absorbed block by
-block) and **address derivation** (recovered public keys hashed to 20-byte
-addresses on the device).  Both go through :func:`keccak_f`, which launches
-the CUDA kernel ``csrc/keccak_f1600.cu`` on a CUDA tensor.
+block, :func:`keccak256_blocks`: one launch of the ``keccak256_sponge``
+kernel on a CUDA tensor) and **address derivation** (recovered public keys
+hashed to 20-byte addresses; on a CUDA tensor inside the recovery kernel,
+``csrc/secp256k1_recover.cu``, else :func:`pubkey_to_address_words`).
+:func:`keccak_f` launches the bare permutation ``keccak_f1600`` on a CUDA
+tensor.
 
 Byte conventions: Keccak absorbs bytes into lanes little-endian.  A
 "stream word" is a 32-bit word whose LSB is the earliest byte of the byte
@@ -70,19 +73,23 @@ def keccak256_blocks(blocks: torch.Tensor, num_blocks: torch.Tensor) -> torch.Te
 
     ``blocks`` is ``(..., B, 17, 2)`` int32 (17 lanes per 136-byte rate
     block, padded by :func:`pack_messages`); ``num_blocks`` is ``(...,)``
-    in ``[1, B]``.  Every lane runs all ``B`` blocks; blocks past
-    ``num_blocks`` are dropped by a select, as in the JAX package.
+    int32 in ``[1, B]``.  A CUDA tensor launches the ``keccak256_sponge``
+    kernel once (counted in ``keccak256_blocks.launches``): each message
+    absorbs its own blocks in registers and stops after its count.  A CPU
+    tensor takes the plain version, which runs all ``B`` blocks and drops
+    those past the count by a select, as in the JAX package.
     """
-    bmax = blocks.shape[-3]
-    batch = blocks.shape[:-3]
-    state = torch.zeros(batch + (25, 2), dtype=torch.int32, device=blocks.device)
-    for i in range(bmax):
-        absorbed = torch.cat([state[..., :17, :] ^ blocks[..., i, :, :], state[..., 17:, :]], dim=-2)
-        nxt = keccak_f(absorbed)
-        live = (i < num_blocks)[..., None, None]
-        state = torch.where(live, nxt, state)
-    # Digest = first 4 lanes, little-endian => stream words interleave lo/hi.
-    return state[..., :4, :].reshape(batch + (8,))
+    if blocks.device.type == "cuda":
+        out = keccak_f1600.launch_sponge(blocks, num_blocks)
+        if num_blocks.numel():  # an empty batch launches nothing
+            keccak256_blocks.launches += 1
+        return out
+    if blocks.device.type == "cpu":
+        return keccak_f1600.keccak256_sponge_plain(blocks, num_blocks)
+    raise ValueError(f"keccak256_blocks runs on cuda or cpu, not {blocks.device}")
+
+
+keccak256_blocks.launches = 0
 
 
 def _srl(w: torch.Tensor, n: int) -> torch.Tensor:
@@ -132,9 +139,11 @@ def words_le_to_limbs(words: torch.Tensor, nlimbs: int) -> torch.Tensor:
 
 
 def pubkey_to_address_words(qx_limbs: torch.Tensor, qy_limbs: torch.Tensor) -> torch.Tensor:
-    """keccak256(X32 || Y32)[12:] on the device; ``(..., 5)`` stream words.
+    """keccak256(X32 || Y32)[12:] in PyTorch ops; ``(..., 5)`` stream words.
 
     Input limbs must be canonical (:func:`go_ibft_tpu_torch.ops.fields.canon`).
+    The plain version of the address hash on any device: on a CUDA tensor the
+    main path hashes inside the recovery kernel instead (:mod:`.ecrecover`).
     """
     xw = limbs_to_words_le(qx_limbs)
     yw = limbs_to_words_le(qy_limbs)
@@ -149,7 +158,7 @@ def pubkey_to_address_words(qx_limbs: torch.Tensor, qy_limbs: torch.Tensor) -> t
     lanes += [torch.stack([zero, zero], dim=-1)] * 7
     lanes.append(torch.stack([zero, zero - (1 << 31)], dim=-1))
     block = torch.stack(lanes, dim=-2)  # (..., 17, 2)
-    digest = keccak256_blocks(
+    digest = keccak_f1600.keccak256_sponge_plain(
         block[..., None, :, :], torch.ones(batch, dtype=torch.int32, device=block.device)
     )
     # Address = digest bytes 12..31 = stream words 3..7

@@ -1,12 +1,21 @@
-"""Keccak-f[1600]: the CUDA kernel's launcher and its plain PyTorch version.
+"""Keccak on the card: the CUDA kernels' launchers and their plain versions.
 
-The port of ``go_ibft_tpu/ops/pallas_keccak.py`` (kernel body
-``_keccak_f_kernel``, launched by ``_keccak_f_rows``' ``pl.pallas_call``).
-The kernel itself is ``csrc/keccak_f1600.cu``; :func:`launch` runs it on a
-CUDA tensor, :func:`keccak_f_plain` computes the same function with PyTorch
-ops on any device.  :func:`go_ibft_tpu_torch.ops.keccak.keccak_f` is the
-wrapper the main path calls: it takes the kernel for a CUDA tensor and the
-plain version for a CPU tensor, and counts its launches.
+Two kernels of ``csrc/keccak_f1600.cu``, both built on the permutation of
+``csrc/keccak_f1600.cuh``:
+
+* ``keccak_f1600``, the port of ``go_ibft_tpu/ops/pallas_keccak.py``
+  (kernel body ``_keccak_f_kernel``, launched by ``_keccak_f_rows``'
+  ``pl.pallas_call``): :func:`launch` runs it, :func:`keccak_f_plain` is its
+  plain PyTorch version;
+* ``keccak256_sponge``, the port of the absorb loop
+  ``go_ibft_tpu/ops/keccak.py::keccak256_blocks``: :func:`launch_sponge`
+  runs it, :func:`keccak256_sponge_plain` is its plain version.
+
+The launchers take CUDA tensors only and raise on any fault; the plain
+versions run on any device.  :func:`go_ibft_tpu_torch.ops.keccak.keccak_f`
+and :func:`~go_ibft_tpu_torch.ops.keccak.keccak256_blocks` are the wrappers
+the port calls: the kernel for a CUDA tensor, the plain version for a CPU
+tensor, and a count of launches.
 
 A state is a contiguous ``(..., 25, 2)`` int32 tensor of uint32 halves (low
 half first) — byte for byte the little-endian ``(..., 25)`` uint64 lanes.
@@ -18,7 +27,7 @@ import torch
 
 from .. import _build
 
-__all__ = ["RC", "ROT", "launch", "keccak_f_plain"]
+__all__ = ["RC", "ROT", "launch", "launch_sponge", "keccak_f_plain", "keccak256_sponge_plain"]
 
 RC = [
     0x0000000000000001, 0x0000000000008082, 0x800000000000808A,
@@ -69,6 +78,50 @@ def launch(state: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _check_sponge(blocks: torch.Tensor, num_blocks: torch.Tensor) -> None:
+    if blocks.dtype != torch.int32 or num_blocks.dtype != torch.int32:
+        raise TypeError(
+            f"sponge inputs must be int32, got {blocks.dtype} and {num_blocks.dtype}"
+        )
+    if blocks.dim() < 3 or tuple(blocks.shape[-2:]) != (17, 2):
+        raise ValueError(f"rate blocks must be (..., nb, 17, 2), got {tuple(blocks.shape)}")
+    if tuple(num_blocks.shape) != tuple(blocks.shape[:-3]):
+        raise ValueError(
+            f"num_blocks {tuple(num_blocks.shape)} does not match blocks {tuple(blocks.shape)}"
+        )
+
+
+def launch_sponge(blocks: torch.Tensor, num_blocks: torch.Tensor) -> torch.Tensor:
+    """Run the ``keccak256_sponge`` kernel; returns ``(..., 8)`` stream words.
+
+    ``blocks`` is a contiguous ``(..., nb, 17, 2)`` int32 CUDA tensor of
+    padded rate blocks, ``num_blocks`` the ``(...)`` int32 block counts on the
+    same card; a message absorbs its first ``clamp(count, 0, nb)`` blocks.
+    One launch on PyTorch's current stream, no synchronisation; raises on
+    any fault.
+    """
+    _check_sponge(blocks, num_blocks)
+    if blocks.device.type != "cuda" or num_blocks.device != blocks.device:
+        raise ValueError(
+            f"the sponge kernel takes CUDA tensors on one card, got {blocks.device} "
+            f"and {num_blocks.device}"
+        )
+    if not (blocks.is_contiguous() and num_blocks.is_contiguous()):
+        raise ValueError("sponge inputs must be contiguous")
+    lib = _build.load("keccak_f1600")
+    batch = tuple(blocks.shape[:-3])
+    out = torch.empty(batch + (8,), dtype=torch.int32, device=blocks.device)
+    n = num_blocks.numel()
+    if n:
+        stream = torch.cuda.current_stream(blocks.device).cuda_stream
+        rc = lib.keccak256_sponge(
+            blocks.data_ptr(), num_blocks.data_ptr(), out.data_ptr(), n, blocks.shape[-3], stream
+        )
+        if rc != 0:
+            raise RuntimeError(f"keccak256_sponge launch failed: cudaError {rc}")
+    return out
+
+
 def _signed64(v: int) -> int:
     return v - (1 << 64) if v >> 63 else v
 
@@ -112,3 +165,20 @@ def keccak_f_plain(state: torch.Tensor) -> torch.Tensor:
         b = _rotl(a[..., src], rot)
         a = b ^ (~b[..., chi1] & b[..., chi2]) ^ rcs[r]
     return a.unsqueeze(-1).view(torch.int32)
+
+
+def keccak256_sponge_plain(blocks: torch.Tensor, num_blocks: torch.Tensor) -> torch.Tensor:
+    """The sponge in PyTorch ops: every message runs all ``nb`` blocks
+    through :func:`keccak_f_plain`; blocks past its count are dropped by a
+    select, as in the JAX package.  Returns ``(..., 8)`` stream words."""
+    _check_sponge(blocks, num_blocks)
+    bmax = blocks.shape[-3]
+    batch = blocks.shape[:-3]
+    state = torch.zeros(batch + (25, 2), dtype=torch.int32, device=blocks.device)
+    for i in range(bmax):
+        absorbed = torch.cat([state[..., :17, :] ^ blocks[..., i, :, :], state[..., 17:, :]], dim=-2)
+        nxt = keccak_f_plain(absorbed)
+        live = (i < num_blocks)[..., None, None]
+        state = torch.where(live, nxt, state)
+    # Digest = first 4 lanes, little-endian => stream words interleave lo/hi.
+    return state[..., :4, :].reshape(batch + (8,))

@@ -21,8 +21,8 @@ from typing import Tuple
 
 import torch
 
+from . import ecrecover
 from . import keccak as dk
-from . import secp256k1 as sec
 
 __all__ = [
     "digest_words",
@@ -47,9 +47,11 @@ def split_power(power: int) -> Tuple[int, int]:
     return power & 0xFFFF, power >> 16
 
 
-def _recover_address(z_limbs, r, s, v):
-    qx, qy, ok = sec.ecdsa_recover(z_limbs, r, s, v)
-    return dk.pubkey_to_address_words(qx, qy), ok
+def _recover_address(zw, r, s, v):
+    """Recovered address words and ``ok``: one launch of the recovery
+    kernel on a CUDA tensor, the plain composition on a CPU tensor."""
+    _, _, addr, ok = ecrecover.recover(zw, r, s, v)
+    return addr, ok
 
 
 def digest_words(blocks: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
@@ -63,8 +65,7 @@ def sig_checks_zw(zw, r, s, v, claimed_w, live):
     """Recovery succeeds AND the recovered address equals the claimed one
     AND the lane is live.  Serves envelope senders (``zw`` = payload
     digests) and committed seals (``zw`` = the proposal hash) alike."""
-    z = dk.words_le_to_limbs(zw, sec.FIELD.nlimbs)
-    addr, ok = _recover_address(z, r, s, v)
+    addr, ok = _recover_address(zw, r, s, v)
     match = torch.all(addr == claimed_w, dim=-1)
     return ok & match & live
 

@@ -13,9 +13,12 @@ algorithms, same limb values:
   lanes (4 doublings + one complete add per window), combined at the end.
 
 Each ``lax.scan`` of the original is a Python loop over PyTorch ops here,
-so on the card one recovery batch is on the order of 10**5 small kernel
-launches whatever the batch size.  Fusing the ladder into one kernel and
-capturing the launches in a CUDA graph are later work.
+so one batch of these ops is on the order of 10**5 small kernels whatever
+the batch size.  That is the plain version: on a CUDA tensor
+:func:`ecdsa_recover` launches the hand-written recovery kernel
+(:mod:`.ecrecover`, ``csrc/secp256k1_recover.cu``) instead, and a CPU tensor
+takes :func:`ecdsa_recover_plain`.  :func:`ecdsa_verify` is off the main
+path and stays plain on both.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ __all__ = [
     "glv_split",
     "ecdsa_verify",
     "ecdsa_recover",
+    "ecdsa_recover_plain",
 ]
 
 # Curve constants (SEC 2 v2, "Recommended Parameters secp256k1").
@@ -431,10 +435,30 @@ def ecdsa_recover(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched public-key recovery (Ethereum-style ecrecover).
 
-    ``v`` is the recovery id (0 or 1; ids 2/3 are rejected).  Returns
-    ``(x, y, ok)`` with canonical affine coordinates; lanes with
-    ``ok == False`` have unspecified coordinates.
+    ``z`` is the digest as a scalar (``(..., 20)`` canonical limbs, taken
+    mod N), ``r``, ``s`` raw 20-limb values (range-checked here), ``v`` the
+    recovery id (0 or 1; ids 2/3 are rejected).  Returns ``(x, y, ok)`` with
+    canonical affine coordinates; lanes with ``ok == False`` have unspecified
+    coordinates.  A CUDA tensor launches the recovery kernel (counted in
+    ``ecrecover.recover.launches``); a CPU tensor takes
+    :func:`ecdsa_recover_plain`.
     """
+    if v.device.type == "cuda":
+        from . import ecrecover  # imports this module
+
+        x, y, _, ok = ecrecover.recover(z, r, s, v)
+        return x, y, ok
+    if v.device.type != "cpu":
+        raise ValueError(f"ecdsa_recover runs on cuda or cpu, not {v.device}")
+    return ecdsa_recover_plain(z, r, s, v)
+
+
+def ecdsa_recover_plain(
+    z: torch.Tensor, r: torch.Tensor, s: torch.Tensor, v: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`ecdsa_recover` in PyTorch ops on any device: range checks, the
+    merged square-root / ``r^-1`` window chain, the GLV ladder and a batch
+    inversion, as in the JAX package."""
     ok = _in_scalar_range(r) & _in_scalar_range(s)
     ok = ok & ((v == 0) | (v == 1))
 

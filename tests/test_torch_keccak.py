@@ -77,6 +77,36 @@ def _payloads(seed=7):
     return [rng.bytes(n) for n in _PAYLOAD_LENS]
 
 
+def test_keccak256_blocks_plain_matches_jax_three_blocks_ragged():
+    rng = np.random.default_rng(13)
+    blocks = rng.integers(0, 2**32, size=(9, 3, 17, 2), dtype=np.uint32)
+    counts = np.array([1, 2, 3, 3, 2, 1, 1, 3, 2], dtype=np.int32)
+    before = tk.keccak256_blocks.launches
+    ours = tk.keccak256_blocks(_t(blocks), torch.from_numpy(counts))
+    assert tk.keccak256_blocks.launches == before  # the CPU takes the plain version
+    ref = jk.keccak256_blocks(jnp.asarray(blocks), jnp.asarray(counts))
+    assert np.array_equal(_u32(ours), np.asarray(ref))
+    # A lane stops after its own count: the blocks past it change nothing.
+    for i, c in enumerate(counts):
+        alone = tk.keccak256_blocks(_t(blocks[i : i + 1, :c]), torch.from_numpy(counts[i : i + 1]))
+        assert np.array_equal(_u32(alone)[0], _u32(ours)[i])
+
+
+def test_sponge_launch_refuses_cpu_and_malformed_inputs():
+    blocks = _t(np.zeros((4, 2, 17, 2), dtype=np.uint32))
+    counts = torch.ones(4, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        keccak_f1600.launch_sponge(blocks, counts)  # no quiet CPU path behind the kernel
+    with pytest.raises(TypeError):
+        keccak_f1600.launch_sponge(blocks, counts.to(torch.int64))
+    with pytest.raises(ValueError):
+        keccak_f1600.launch_sponge(blocks[:, :, :16], counts)
+    with pytest.raises(ValueError):
+        keccak_f1600.launch_sponge(blocks, counts[:3])
+    with pytest.raises(ValueError):
+        tk.keccak256_blocks(blocks.to("meta"), counts.to("meta"))
+
+
 def test_pack_messages_bit_identical_to_jax():
     payloads = _payloads()
     ours, counts = tk.pack_messages(payloads, 4)

@@ -3,10 +3,15 @@
 Keys, digests and signatures come from fixed seeds; the lanes include the
 adversarial cases the device path must reject (r = 0, r >= N, s = 0,
 s >= N, v not in {0, 1}, an r that is no curve x-coordinate, a zero-padded
-dead lane).  Oracle: the JAX package's host ``crypto.ecdsa.recover`` /
-``verify`` (Python ints).  Tolerance: exact equality of the validity mask
-and of every recovered coordinate.  The JAX device ``ecdsa_recover``
-comparison is slow-tier (its ladder takes minutes to compile here).
+dead lane).  The recovery batch adds the lanes a hand-written ladder is
+likely to get wrong (``go_ibft_tpu_torch/bench/lanes.py``, the same kinds
+the card tests and ``chip_smoke.py`` use): z = 2**256 - 1, N and 0, a lane
+whose result is the point at infinity, a lane that meets P == Q inside the
+ladder, and r, s >= 2**256 as 20-limb values.  Oracle: the JAX package's
+host ``crypto.ecdsa.recover`` / ``verify`` (Python ints).  Tolerance: exact
+equality of the validity mask and of every recovered coordinate.  The JAX
+device ``ecdsa_recover`` comparison is slow-tier (its ladder takes minutes
+to compile here).
 """
 
 import jax.numpy as jnp
@@ -17,6 +22,7 @@ import torch
 from go_ibft_tpu.crypto import ecdsa as jhost
 from go_ibft_tpu.ops import fields as jf
 from go_ibft_tpu.ops import secp256k1 as jsec
+from go_ibft_tpu_torch.bench import build_recovery_lanes
 from go_ibft_tpu_torch.crypto import ecdsa as host
 from go_ibft_tpu_torch.ops import fields as tf
 from go_ibft_tpu_torch.ops import secp256k1 as sec
@@ -77,13 +83,45 @@ def lanes():
     return keys, z, r, s, v, expect
 
 
-def test_ecdsa_recover_matches_host_oracle(lanes):
-    keys, z, r, s, v, expect = lanes
+# The lanes of bench/lanes.py that the 16 above do not cover, and whether
+# each recovers a key.
+_HARD_LANES = {
+    "z = 2^256 - 1": True,
+    "z = N": True,
+    "z = 0": True,
+    "Q = infinity": False,
+    "P == Q in the ladder": True,
+    "r >= 2^256": False,
+    "s >= 2^256": False,
+}
+
+
+@pytest.fixture(scope="module")
+def recovery_batch(lanes):
+    """The 16 lanes above, then the hard lanes: ``(z, r, s, v, expect)``."""
+    _, z, r, s, v, expect = lanes
+    hard = build_recovery_lanes(1, seed=21)
+    z, r, s, v, expect = list(z), list(r), list(s), list(v), list(expect)
+    for i, label in enumerate(hard.labels):
+        if label in _HARD_LANES:
+            z.append(hard.digests[i])
+            r.append(hard.r[i])
+            s.append(hard.s[i])
+            v.append(hard.v[i])
+            expect.append(jhost.recover(z[-1], r[-1], s[-1], v[-1]))
+            assert (expect[-1] is not None) == _HARD_LANES[label], label
+    return z, r, s, v, expect
+
+
+def test_ecdsa_recover_matches_host_oracle(lanes, recovery_batch):
+    keys = lanes[0]
+    z, r, s, v, expect = recovery_batch
     zl = _limbs([jhost.digest_to_scalar(d) for d in z])
     qx, qy, ok = sec.ecdsa_recover(zl, _limbs(r), _limbs(s), torch.tensor(v, dtype=torch.int32))
     ok = ok.numpy()
     assert list(ok) == [e is not None for e in expect]
     assert ok[:8].all() and not ok[8:14].any() and ok[14] and not ok[15]
+    assert list(ok[16:]) == list(_HARD_LANES.values())
     xs, ys = tf.from_limbs(qx), tf.from_limbs(qy)
     for i, e in enumerate(expect):
         if e is not None:
@@ -143,8 +181,8 @@ def test_point_ops_match_host_arithmetic():
 
 
 @pytest.mark.slow
-def test_ecdsa_recover_matches_jax_device_path(lanes):
-    _, z, r, s, v, _ = lanes
+def test_ecdsa_recover_matches_jax_device_path(recovery_batch):
+    z, r, s, v, _ = recovery_batch
     zl = tf.to_limbs([jhost.digest_to_scalar(d) for d in z], 20)
     rl, sl = tf.to_limbs(r, 20), tf.to_limbs(s, 20)
     va = np.asarray(v, dtype=np.int32)
