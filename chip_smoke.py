@@ -24,10 +24,10 @@ Phases, in order (any failure exits non-zero and prints no result):
    expected masks, quorum reached (210 >= 201);
 6. a 100-validator round with 34 bad signatures: no quorum;
 7. time each kernel at the main path's own inputs (CUDA events) beside its
-   plain version and its bound; time phases 4-5 with CUDA events and the
-   host clock (median of 20 calls after warm-up), and profile one
-   100-validator call: device kernels (fewer than 10,000), device busy
-   time, idle share;
+   plain version and its bound, and the recovery at 1 to 16,384 lanes;
+   time phases 4-5 with CUDA events and the host clock (median of 20 calls
+   after warm-up), and profile one 100-validator call: device kernels
+   (fewer than 10,000), device busy time, idle share;
 8. print the ``kernels`` line, then the result line.
 
 It imports nothing of JAX or of the JAX package.  It needs one card and
@@ -58,17 +58,23 @@ SPONGE_BATCHES = (1, 128, 129, 256, 512, 1024)
 SPONGE_BLOCKS = (1, 2, 3)
 RECOVER_BATCHES = (1, 33, 256, 1024)
 TIMED_BATCHES = (128, 256, 1024, 4096)
+# Lane counts of the recovery sweep in phase 7: where the kernel stops being
+# bound by one lane's chain.
+SWEEP_LANES = (1, 256, 1024, 4096, 16384)
 # 64-bit operations in one Keccak-f round: theta (20 xor + 5 rot + 5 xor +
 # 25 xor), rho (24 rot), chi (25 x not/and/xor), iota (1 xor); each is two
 # 32-bit operations.
 KECCAK_OPS_PER_STATE = 24 * 2 * (20 + 5 + 5 + 25 + 24 + 75 + 1)
 KECCAK_BYTES_PER_STATE = 2 * 25 * 8  # read once, written once
-# 32-bit integer operations of csrc/secp256k1_recover.cu, counted from its
-# source, smaller terms (field additions, selects) left out so that the
-# bound stays a lower bound.  A 256 x 256-bit product is 64 multiply-adds of
-# 32 x 32 -> 64 bits, each a multiply (2 ops) and a 64-bit add (2 ops); the
-# fold mod P adds about 64 more; a Montgomery product mod N is two such
-# product passes.
+# 32-bit integer operations of one recovery, counted from the source of the
+# recovery kernel's first version (Fermat powers, one 4-bit Straus ladder
+# over G, phi(G), R and phi(R)), smaller terms (field additions, selects)
+# left out.  The count stays as it was on purpose: it is a fixed yardstick
+# of the work, so that an older kernel and a redesigned one (which does less
+# of it) are read against the same bound.  A 256 x 256-bit product is 64
+# multiply-adds of 32 x 32 -> 64 bits, each a multiply (2 ops) and a 64-bit
+# add (2 ops); the fold mod P adds about 64 more; a Montgomery product mod N
+# is two such product passes.
 OPS_WIDE_PRODUCT = 64 * 4
 OPS_FIELD_MUL = OPS_WIDE_PRODUCT + 64
 OPS_MONT_MUL = 2 * OPS_WIDE_PRODUCT
@@ -446,6 +452,17 @@ def main() -> int:
             "plain_ms": cuda_time_ms(lambda: ecrecover.recover_plain(zw, r, s, v), 1),
             **bound(v.numel() * RECOVER_BYTES_PER_LANE, ops),
         }
+    # The recovery at growing lane counts: the 300-validator round's 1,024
+    # lanes repeated.
+    zw, r, s, v = main_path_inputs(args300, quorum)[2:]
+    sweep = {}
+    for b in SWEEP_LANES:
+        idx = torch.arange(b, device=dev) % v.numel()
+        ins = [t[idx].contiguous() for t in (zw, r, s, v)]
+        sweep[b] = cuda_time_ms(lambda ins=ins: ecrecover.launch(*ins), 20 if b <= 4096 else 5)
+        log(f"[7] secp256k1_recover at {b} lanes: {sweep[b]:.5f} ms "
+            f"({b / sweep[b] * 1e3:.0f} lanes/s)")
+    report["recover_sweep_ms"] = sweep
     for name, rows in timing.items():
         for key, t in rows.items():
             log(f"[7] {name} at {key}: kernel {t['ms']:.5f} ms, plain {t['plain_ms']:.3f} ms, "

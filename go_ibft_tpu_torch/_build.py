@@ -42,7 +42,7 @@ SIGNATURES = {
     },
     "secp256k1_recover": {
         "secp256k1_recover": (
-            [_P, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P],
+            [_P, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P],
             ctypes.c_int,
         ),
     },

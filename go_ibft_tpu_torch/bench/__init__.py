@@ -1,7 +1,7 @@
 """Deterministic signed-round workloads (port of ``go_ibft_tpu.bench``) and
 the seeded recovery lanes the tests and ``chip_smoke.py`` share."""
 
-from .lanes import RecoveryLanes, build_recovery_lanes
+from .lanes import RecoveryLanes, build_recovery_lanes, build_sparse_scalar_lanes
 from .workload import RoundWorkload, SignedRound, build_round_workload, build_signed_round
 
 __all__ = [
@@ -11,4 +11,5 @@ __all__ = [
     "build_recovery_lanes",
     "build_round_workload",
     "build_signed_round",
+    "build_sparse_scalar_lanes",
 ]

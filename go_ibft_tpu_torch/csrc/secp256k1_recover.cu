@@ -15,39 +15,58 @@
 //
 // Where ok is false, x, y and addr are unspecified, as in the JAX package.
 //
-// Design.  A lane's state never leaves the thread: field elements mod P are
-// 8 x 32-bit words, always canonical (< P), reduced through
-// 2^256 = 2^32 + 977 (mod P); arithmetic mod N is Montgomery (CIOS).  The
-// square root, r^-1 (mod N) and the final Z^-1 are fixed-exponent powers
-// with 4-bit windows.  Both scalars are split by the GLV endomorphism
-// phi(x, y) = (beta x, y) = lambda (x, y) into signed half-scalars of at most
-// 129 bits, as in the JAX package; one accumulator then runs a 33-window
-// Straus ladder (4 doublings and up to 4 additions per window) over the
-// tables d*G and d*phi(G) (affine, in __constant__ memory below) and d*R,
-// d*phi(R) (Jacobian, built per lane).  Additions meet P == Q and P == -Q,
-// and both are handled explicitly.  One inversion gives the affine point,
-// whose coordinates are unique, so no cross-lane batch inversion is needed.
-// The address hash runs keccak::permute (keccak_f1600.cuh) on registers.
-//
-// What bounds it on an H100: about 3.5e3 field multiplications per lane,
-// each some 200 32-bit integer instructions, against 260 B read and 225 B
+// What bounds it on an H100: about 2.6e3 field products per lane, each a
+// few hundred 32-bit integer instructions, against 260 B read and 225 B
 // written per lane: operations, not bytes.  At the main path's 256..1024
-// lanes only 8..32 warps run on the 132 SMs, so the kernel is bound by one
-// thread's dependency chain.  Blocks of 32 threads spread those warps over as
-// many SMs as possible; several threads per lane, or wide products on the
-// tensor cores, are later work.
+// lanes only 8..32 blocks run on 132 SMs, so the time is the lane's
+// dependency chain, and the design shortens that chain:
 //
-// The lane arithmetic also compiles with a host C++ compiler (lane.cuh): the
-// CPU tests build this file with g++ and hold secp256k1_recover_host against
-// the host oracle.
+// * Two warps per block of 32 lanes: warp 0 runs each lane's R side (the
+//   square root, the table of d R, k1 R and the end), warp 1 its G side
+//   (r^-1, the GLV split of u2, u1 G and k2 phi(R)); they meet in shared
+//   memory at three barriers.  Q = k1 R + (k2 phi(R) + u1 G).
+// * Field elements mod P are 8 x 32-bit words in registers, canonical (< P)
+//   after every operation.  Products and squares are summed by column in
+//   64-bit halves (no carry flag, so the columns overlap; squares take the
+//   28 cross products once); the fold through 2^256 = 2^32 + 977 (mod P)
+//   and the word additions run as PTX carry chains (add.cc / mad.lo.cc /
+//   madc.hi.cc).  The product and the square are calls on the card (their
+//   code stays in the instruction cache; operands and result pass in
+//   registers); everything else is inline.
+// * Both inversions, r^-1 mod N and Z^-1 mod P, are Bernstein-Yang safegcd
+//   (20 x 30 branch-free divsteps on signed 30-bit limbs, as libsecp256k1's
+//   modinv32) instead of Fermat powers.  0 maps to 0, as the power did.
+//   The square root is an addition chain of 253 squarings and 13 products.
+// * u1 G is a fixed-base comb: the wrapper uploads d 2^(8w) G for w < 32,
+//   d < 256 (affine, 512 KiB, resident in L2) once per card, and the lane
+//   adds one entry per nonzero byte of u1: at most 32 mixed additions and
+//   no doublings.
+// * u2 is split by the GLV endomorphism phi(x, y) = (beta x, y) =
+//   lambda (x, y) into signed halves k1, k2 of at most 129 bits, as in the
+//   JAX package; each half runs a 33-window ladder (4 doublings and at most
+//   one addition per window) over d R, d = 1..15 (Jacobian, in shared
+//   memory, one column per lane, so reads indexed by a per-lane digit
+//   neither serialise nor touch local memory), the G side's with X times
+//   beta.
+// * The two merges are complete additions (P == Q and P == -Q happen for
+//   crafted inputs, and bench/lanes.py holds such lanes); one inversion
+//   gives the affine point, whose coordinates are unique, so no cross-lane
+//   batch inversion is needed.  The address hash runs keccak::permute
+//   (keccak_f1600.cuh) on registers.
+//
+// The lane arithmetic also compiles with a host C++ compiler (lane.cuh; the
+// PTX has a portable C++ twin that runs the same algorithm, and the host
+// runs a lane's two sides one after the other): the CPU tests build this
+// file with g++ and hold secp256k1_recover_host against the host oracle,
+// and secp256k1_modinv_host against Python's pow(x, -1, m).
 
 #include "keccak_f1600.cuh"
 #include "lane.cuh"
 
 #if defined(__CUDACC__)
-#define LANE_BIG __device__ __noinline__
+#define LANE_MUL __device__ __noinline__
 #else
-#define LANE_BIG static
+#define LANE_MUL inline
 #endif
 
 namespace secp {
@@ -55,7 +74,11 @@ namespace secp {
 constexpr int kLimbs = 20;  // 13-bit limbs of the port's tensors
 constexpr int kLimbBits = 13;
 constexpr uint32_t kLimbMask = (1u << kLimbBits) - 1;
-constexpr int kWindows = 33;  // 4-bit windows over the 132 bits of a half-scalar
+constexpr int kWindows = 33;       // 4-bit windows over the 132 bits of a half-scalar
+constexpr int kCombWindows = 32;   // 8-bit comb windows over u1
+constexpr int kCombWords = 16;     // words per comb entry: x, y
+constexpr int kRWords = 24;        // words per d*R entry: X, Y, Z
+constexpr int kRTable = 15;        // d = 1..15
 
 struct U256 {
   uint32_t w[8];  // little-endian words
@@ -69,19 +92,18 @@ LANE_TABLE uint32_t kP[8] = {0xFFFFFC2Fu, 0xFFFFFFFEu, 0xFFFFFFFFu, 0xFFFFFFFFu,
                              0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu};
 LANE_TABLE uint32_t kN[8] = {0xD0364141u, 0xBFD25E8Cu, 0xAF48A03Bu, 0xBAAEDCE6u,
                              0xFFFFFFFEu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu};
-// 2^256 mod N (Montgomery one) and 2^512 mod N; -N^-1 mod 2^32.
+// 2^256 mod N and 2^512 mod N; -N^-1 mod 2^32.
 LANE_TABLE uint32_t kMontOneN[8] = {0x2FC9BEBFu, 0x402DA173u, 0x50B75FC4u, 0x45512319u,
                                     0x00000001u, 0x00000000u, 0x00000000u, 0x00000000u};
 LANE_TABLE uint32_t kMontR2N[8] = {0x67D7D140u, 0x896CF214u, 0x0E7CF878u, 0x741496C2u,
                                    0x5BCD07C6u, 0xE697F5E4u, 0x81C69BC5u, 0x9D671CD5u};
 constexpr uint32_t kN0Inv = 0x5588B13Fu;
-// Exponents: P - 2 (inverse mod P), (P + 1) / 4 (square root), N - 2.
-LANE_TABLE uint32_t kExpInvP[8] = {0xFFFFFC2Du, 0xFFFFFFFEu, 0xFFFFFFFFu, 0xFFFFFFFFu,
-                                   0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu};
-LANE_TABLE uint32_t kExpSqrt[8] = {0xBFFFFF0Cu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu,
-                                   0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0x3FFFFFFFu};
-LANE_TABLE uint32_t kExpInvN[8] = {0xD036413Fu, 0xBFD25E8Cu, 0xAF48A03Bu, 0xBAAEDCE6u,
-                                   0xFFFFFFFEu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu};
+// The moduli as signed 30-bit limbs (safegcd), and their inverses mod 2^30.
+LANE_TABLE int32_t kP30[9] = {-0x3D1, -4, 0, 0, 0, 0, 0, 0, 65536};
+constexpr uint32_t kP30Inv = 0x2DDACACFu;
+LANE_TABLE int32_t kN30[9] = {0x10364141, 0x3F497A33, 0x348A03BB, 0x2BB739AB, -0x146,
+                              0, 0, 0, 65536};
+constexpr uint32_t kN30Inv = 0x2A774EC1u;
 // beta: a cube root of unity mod P, phi(x, y) = (beta x, y).
 LANE_TABLE uint32_t kBeta[8] = {0x719501EEu, 0xC1396C28u, 0x12F58995u, 0x9CF04975u,
                                 0xAC3434E9u, 0x6E64479Eu, 0x657C0710u, 0x7AE96A2Bu};
@@ -100,81 +122,27 @@ LANE_TABLE uint32_t kGlvNegB1[8] = {0x0ABFE4C3u, 0x6F547FA9u, 0x010E8828u, 0xE44
 LANE_TABLE uint32_t kGlvB2[8] = {0x9284EB15u, 0xE86C90E4u, 0xA7D46BCDu, 0x3086D221u,
                                  0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u};
 
-// d*G, affine, and the x-coordinates of d*phi(G) = (beta x, y), d = 1..15
-// (row 0 is unused): the tables of go_ibft_tpu_torch/ops/secp256k1.py::
-// _precompute_g_table and _precompute_glv_g_table as 32-bit words.
-LANE_TABLE uint32_t kGx[16][8] = {
-    {0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u},  // 0
-    {0x16F81798u, 0x59F2815Bu, 0x2DCE28D9u, 0x029BFCDBu, 0xCE870B07u, 0x55A06295u, 0xF9DCBBACu, 0x79BE667Eu},  // 1
-    {0x5C709EE5u, 0xABAC09B9u, 0x8CEF3CA7u, 0x5C778E4Bu, 0x95C07CD8u, 0x3045406Eu, 0x41ED7D6Du, 0xC6047F94u},  // 2
-    {0xBCE036F9u, 0x8601F113u, 0x836F99B0u, 0xB531C845u, 0xF89D5229u, 0x49344F85u, 0x9258C310u, 0xF9308A01u},  // 3
-    {0xE8C4CD13u, 0x74FA94ABu, 0x0EE07584u, 0xCC6C1390u, 0x930B1404u, 0x581E4904u, 0xC10D80F3u, 0xE493DBF1u},  // 4
-    {0xB240EFE4u, 0xCBA8D569u, 0xDC619AB7u, 0xE88B84BDu, 0x0A5C5128u, 0x55B4A725u, 0x1A072093u, 0x2F8BDE4Du},  // 5
-    {0x60297556u, 0x2F057A14u, 0x8568A18Bu, 0x82F6472Fu, 0x355235D3u, 0x20453A14u, 0x755EEEA4u, 0xFFF97BD5u},  // 6
-    {0xCAC4F9BCu, 0xE92BDDEDu, 0x0330E39Cu, 0x3D419B7Eu, 0xF2EA7A0Eu, 0xA398F365u, 0x6E5DB4EAu, 0x5CBDF064u},  // 7
-    {0xE10A2A01u, 0x67784EF3u, 0xE5AF888Au, 0x0A1BDD05u, 0xB70F3C2Fu, 0xAFF3843Fu, 0x5CCA351Du, 0x2F01E5E1u},  // 8
-    {0xFC27CCBEu, 0xC35F110Du, 0x4C57E714u, 0xE0979697u, 0x9F559ABDu, 0x09AD178Au, 0xF0C7F653u, 0xACD484E2u},  // 9
-    {0x47E247C7u, 0x52A68E2Au, 0x1943C2B7u, 0x3442D49Bu, 0x1AE6AE5Du, 0x35477C7Bu, 0x47F3C862u, 0xA0434D9Eu},  // 10
-    {0x5DA008CBu, 0xBBEC1789u, 0xE5C17891u, 0x5649980Bu, 0x70C65AACu, 0x5EF4246Bu, 0x58A9411Eu, 0x774AE7F8u},  // 11
-    {0x70AFE85Au, 0xC5B0F470u, 0x9620095Bu, 0x687CF441u, 0x4D734633u, 0x15C38F00u, 0x48E7561Bu, 0xD01115D5u},  // 12
-    {0x19405AA8u, 0xDEEDDF8Fu, 0x610E58CDu, 0xB075FBC6u, 0xC3748651u, 0xC7D1D205u, 0xD975288Bu, 0xF28773C2u},  // 13
-    {0x60E823E4u, 0xE49B241Au, 0x678949E6u, 0x26AA7B63u, 0x07D38E32u, 0xFD64E67Fu, 0x895E719Cu, 0x499FDF9Eu},  // 14
-    {0xE27E080Eu, 0x44ADBCF8u, 0x3C85F79Eu, 0x31E5946Fu, 0x095FF411u, 0x5A465AE3u, 0x7D43EA96u, 0xD7924D4Fu},  // 15
-};
-LANE_TABLE uint32_t kGy[16][8] = {
-    {0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u},  // 0
-    {0xFB10D4B8u, 0x9C47D08Fu, 0xA6855419u, 0xFD17B448u, 0x0E1108A8u, 0x5DA4FBFCu, 0x26A3C465u, 0x483ADA77u},  // 1
-    {0x50CFE52Au, 0x236431A9u, 0x3266D0E1u, 0xF7F63265u, 0x466CEAEEu, 0xA3C58419u, 0xA63DC339u, 0x1AE168FEu},  // 2
-    {0x84B8E672u, 0x6CB9FD75u, 0x34C2231Bu, 0x6500A999u, 0x2A37F356u, 0x0FE337E6u, 0x632DE814u, 0x388F7B0Fu},  // 3
-    {0x47739922u, 0xCFE97BDCu, 0xBFBDFE40u, 0xD967AE33u, 0x8EA51448u, 0x5642E209u, 0xA0D455B7u, 0x51ED993Eu},  // 4
-    {0xA6AC62D6u, 0xDCA87D3Au, 0xAB0D6840u, 0xF788271Bu, 0xA6C9C426u, 0xD4DBA9DDu, 0x36E5E3D6u, 0xD8AC2226u},  // 5
-    {0xB075F297u, 0x3C870C36u, 0x518FE4A0u, 0xDE80F0F6u, 0x7F45C560u, 0xF3BE9601u, 0xACFBB620u, 0xAE12777Au},  // 6
-    {0x087264DAu, 0xA5082628u, 0x13FDE7B5u, 0xA813D0B8u, 0x861A54DBu, 0xA3178D6Du, 0xBA255960u, 0x6AEBCA40u},  // 7
-    {0x6CBDE904u, 0xB5DA2CB7u, 0xBA5B7617u, 0xC2E213D6u, 0x132D13B4u, 0x293D082Au, 0x41539949u, 0x5C4DA8A7u},  // 8
-    {0xC64F9C37u, 0x05CC262Au, 0x375F8E0Fu, 0xADD888A4u, 0x763B61E9u, 0x64380971u, 0xB0A7D9FDu, 0xCC338921u},  // 9
-    {0x037368D7u, 0x3CBEE53Bu, 0xD877A159u, 0x6F794C2Eu, 0x93A24C69u, 0xA3B6C7E6u, 0x5419BC27u, 0x893ABA42u},  // 10
-    {0xC953C61Bu, 0x301D74C9u, 0xDFF9D6A8u, 0x372DB1E2u, 0xD7B7B365u, 0x0243DD56u, 0xEB6B5E19u, 0xD984A032u},  // 11
-    {0xF4062327u, 0x6B051B13u, 0xD9A86D52u, 0x79238C5Du, 0xE17BD815u, 0xA8B64537u, 0xC815E0D7u, 0xA9F34FFDu},  // 12
-    {0xDB03ED81u, 0x29B5CB52u, 0x521FA91Fu, 0x3A1A06DAu, 0x65CDAF47u, 0x758212EBu, 0x8D880A89u, 0x0AB0902Eu},  // 13
-    {0x03A13F5Bu, 0xC65F40D4u, 0x7A3F95BCu, 0x464279C2u, 0xA7B3D464u, 0x90F044E4u, 0xB54E8551u, 0xCAC2F6C4u},  // 14
-    {0xF6A26B58u, 0xC504DC9Fu, 0xD896D3A5u, 0xEA40AF2Bu, 0x28CC6DEFu, 0x83842EC2u, 0xA86C72A6u, 0x581E2872u},  // 15
-};
-LANE_TABLE uint32_t kGBetaX[16][8] = {
-    {0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u},  // 0
-    {0x00B88FCBu, 0xA7BBA044u, 0x7F15E98Du, 0x87284406u, 0x96902325u, 0xAB0102B6u, 0x9DA01887u, 0xBCACE2E9u},  // 1
-    {0xD89250E1u, 0x3E995B6Eu, 0xE43837EFu, 0xD2FAD8CCu, 0x59F87B33u, 0x4135EE7Du, 0xB34CE6DFu, 0xC360A6D0u},  // 2
-    {0x77206B2Fu, 0xF7F0728Cu, 0xC6DC8E1Cu, 0x8AF1E022u, 0x2A28FA2Fu, 0x8DCD8DCFu, 0x731F9B4Bu, 0xDF6EDF03u},  // 3
-    {0x3B306100u, 0x5BDE5B33u, 0xAB487127u, 0x714C30B5u, 0xB90E324Bu, 0x5C45FAF8u, 0x0D382907u, 0x1B77921Fu},  // 4
-    {0x95A83668u, 0x138C6946u, 0xE0D097CCu, 0xA045693Eu, 0xCCB94671u, 0xF79F54FBu, 0xACDA49DFu, 0x337B52E3u},  // 5
-    {0x78F38045u, 0x47AAF280u, 0x56A15A68u, 0x86649D3Eu, 0xE3E8BED7u, 0x5E3AA731u, 0xAA535FC6u, 0xE63BCDD9u},  // 6
-    {0x4E53BC94u, 0x3BC4686Eu, 0x0FAF7AAAu, 0x0D3B20E2u, 0xC095C06Eu, 0xA4FEC4D1u, 0x4BEA0B77u, 0x13F26E75u},  // 7
-    {0x2446CC73u, 0x03E94774u, 0x24257657u, 0xB4FF7715u, 0x29E24892u, 0xAA77840Fu, 0x42D401A7u, 0x47AB6503u},  // 8
-    {0x65953A52u, 0x20CD912Eu, 0xEF6D44E1u, 0xB565CDF5u, 0xEC58AB20u, 0x7B6558AFu, 0x7E44E819u, 0x87B40403u},  // 9
-    {0x741AFE29u, 0xBDB3E957u, 0x083762E4u, 0xC1938D8Eu, 0x46813990u, 0xA136EBB2u, 0xF7A397B1u, 0x26CE269Bu},  // 10
-    {0xBB209CE7u, 0xC5FF4334u, 0x0B5FF620u, 0x79859BB7u, 0xBEBF1A26u, 0x8D897C41u, 0x171DAC1Du, 0x51F4D3D1u},  // 11
-    {0x042295E5u, 0x4A3EB52Cu, 0xC9535355u, 0xF9482837u, 0x2EAC82ADu, 0xAC154842u, 0x953AAC41u, 0x88591BFDu},  // 12
-    {0x475FB678u, 0x60AAEE6Au, 0x4A3D0562u, 0x32907ED7u, 0x78FC783Bu, 0x07046C45u, 0x4BB890A2u, 0xF14D5837u},  // 13
-    {0x20A0B458u, 0x0E6AB7EEu, 0x27C529F6u, 0x580656A6u, 0x87C37384u, 0x1548F0DCu, 0x7810048Au, 0x7B125217u},  // 14
-    {0x71B1B3B4u, 0x3AC0A40Cu, 0xC1C0A639u, 0x05CC3BC9u, 0x512B6948u, 0x0E1B4825u, 0xF5F9454Au, 0x805F1105u},  // 15
-};
-
 // ---------------------------------------------------------------------------
 // 256-bit words
 // ---------------------------------------------------------------------------
 
-LANE_FN void load(U256& r, const uint32_t* t) {
+LANE_FN U256 from_table(const uint32_t* t) {
+  U256 r;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     r.w[i] = t[i];
   }
+  return r;
 }
 
-LANE_FN void set_small(U256& r, uint32_t v) {
+LANE_FN U256 small(uint32_t v) {
+  U256 r;
   r.w[0] = v;
 #pragma unroll
   for (int i = 1; i < 8; ++i) {
     r.w[i] = 0;
   }
+  return r;
 }
 
 LANE_FN bool is_zero(const U256& a) {
@@ -206,162 +174,448 @@ LANE_FN bool geq(const U256& a, const uint32_t* t) {
   return true;
 }
 
-// r = a + b mod 2^256; returns the carry out.
-LANE_FN uint32_t add_words(U256& r, const U256& a, const uint32_t* b) {
-  uint64_t c = 0;
+LANE_FN U256 select(bool c, const U256& a, const U256& b) {
+  U256 r;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    c += static_cast<uint64_t>(a.w[i]) + b[i];
-    r.w[i] = static_cast<uint32_t>(c);
+    r.w[i] = c ? a.w[i] : b.w[i];
+  }
+  return r;
+}
+
+// The PTX below is one instruction per asm statement, the carry flag
+// running from one to the next: volatile keeps their order, and no PTX that
+// the compiler emits touches the flag.  One instruction per statement also
+// means every input is read before the output is written, so the register
+// sharing that inline asm allows between an output and an input of the
+// same value is harmless.
+#if defined(__CUDA_ARCH__)
+#define PTX_ACC(op, acc, b) asm volatile(op " %0, %0, %1;" : "+r"(acc) : "r"(b))
+#define PTX_MAD(op, acc, x, b) asm volatile(op " %0, %1, %2, %0;" : "+r"(acc) : "r"(x), "r"(b))
+#endif
+
+// r[0..7] += b[0..7] + cin (cin 0 or 1); returns the carry out.
+LANE_FN uint32_t add8(uint32_t* r, const uint32_t* b, uint32_t cin) {
+#if defined(__CUDA_ARCH__)
+  uint32_t flag, cout;
+  asm volatile("add.cc.u32 %0, %1, 0xFFFFFFFF;" : "=r"(flag) : "r"(cin));  // carry := cin
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    PTX_ACC("addc.cc.u32", r[i], b[i]);
+  }
+  asm volatile("addc.u32 %0, 0, 0;" : "=r"(cout));
+  return cout;
+#else
+  uint64_t c = cin;
+  for (int i = 0; i < 8; ++i) {
+    c += static_cast<uint64_t>(r[i]) + b[i];
+    r[i] = static_cast<uint32_t>(c);
     c >>= 32;
   }
   return static_cast<uint32_t>(c);
+#endif
 }
 
-// r = a - b mod 2^256; returns the borrow out.
-LANE_FN uint32_t sub_words(U256& r, const U256& a, const uint32_t* b) {
-  uint64_t borrow = 0;
+// r[0..7] -= b[0..7]; returns the borrow out (0 or 1).
+LANE_FN uint32_t sub8(uint32_t* r, const uint32_t* b) {
+#if defined(__CUDA_ARCH__)
+  uint32_t borrow;
+  PTX_ACC("sub.cc.u32", r[0], b[0]);
 #pragma unroll
+  for (int i = 1; i < 8; ++i) {
+    PTX_ACC("subc.cc.u32", r[i], b[i]);
+  }
+  asm volatile("subc.u32 %0, 0, 0;" : "=r"(borrow));
+  return borrow & 1u;
+#else
+  uint64_t borrow = 0;
   for (int i = 0; i < 8; ++i) {
-    const uint64_t d = static_cast<uint64_t>(a.w[i]) - b[i] - borrow;
-    r.w[i] = static_cast<uint32_t>(d);
+    const uint64_t d = static_cast<uint64_t>(r[i]) - b[i] - borrow;
+    r[i] = static_cast<uint32_t>(d);
     borrow = d >> 63;
   }
   return static_cast<uint32_t>(borrow);
+#endif
 }
 
-// The 512-bit product a * b into t[16].
-LANE_FN void mul_wide(uint32_t t[16], const U256& a, const uint32_t* b) {
+// acc[0..8] += x0 b + x1 b 2^64 + x2 b 2^128 + x3 b 2^192: the products of
+// every other word of a multiplicand, whose low and high halves tile
+// acc[0..7] exactly; the carry goes into acc[8].  One carry chain.
+LANE_FN void mac_alternate(uint32_t* acc, uint32_t x0, uint32_t x1, uint32_t x2, uint32_t x3,
+                           uint32_t b) {
+#if defined(__CUDA_ARCH__)
+  PTX_MAD("mad.lo.cc.u32", acc[0], x0, b);
+  PTX_MAD("madc.hi.cc.u32", acc[1], x0, b);
+  PTX_MAD("madc.lo.cc.u32", acc[2], x1, b);
+  PTX_MAD("madc.hi.cc.u32", acc[3], x1, b);
+  PTX_MAD("madc.lo.cc.u32", acc[4], x2, b);
+  PTX_MAD("madc.hi.cc.u32", acc[5], x2, b);
+  PTX_MAD("madc.lo.cc.u32", acc[6], x3, b);
+  PTX_MAD("madc.hi.cc.u32", acc[7], x3, b);
+  asm volatile("addc.u32 %0, %0, 0;" : "+r"(acc[8]));
+#else
+  const uint32_t x[4] = {x0, x1, x2, x3};
+  uint64_t c = 0;
+  for (int k = 0; k < 4; ++k) {
+    const uint64_t p = static_cast<uint64_t>(x[k]) * b;
+    c += static_cast<uint64_t>(acc[2 * k]) + static_cast<uint32_t>(p);
+    acc[2 * k] = static_cast<uint32_t>(c);
+    c >>= 32;
+    c += static_cast<uint64_t>(acc[2 * k + 1]) + static_cast<uint32_t>(p >> 32);
+    acc[2 * k + 1] = static_cast<uint32_t>(c);
+    c >>= 32;
+  }
+  acc[8] += static_cast<uint32_t>(c);
+#endif
+}
+
+// The 512-bit product a * b into t[0..15] (t[16] is 0): the 64 partial
+// products summed by column, their low and high halves into 64-bit column
+// sums (each below 2^36), then one carry pass.  No carry flag: the 16
+// column sums are independent, so the compiler overlaps them, which beat
+// PTX carry-chain rows on the H100 (PERF.md).
+LANE_FN void mul_wide(uint32_t t[17], const U256& a, const U256& b) {
+  uint64_t col[16];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    t[i] = 0;
+  for (int k = 0; k < 16; ++k) {
+    col[k] = 0;
   }
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    uint64_t c = 0;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      c += static_cast<uint64_t>(a.w[i]) * b[j] + t[i + j];
-      t[i + j] = static_cast<uint32_t>(c);
-      c >>= 32;
+      const uint64_t p = static_cast<uint64_t>(a.w[i]) * b.w[j];
+      col[i + j] += static_cast<uint32_t>(p);
+      col[i + j + 1] += p >> 32;
     }
-    t[i + 8] = static_cast<uint32_t>(c);
   }
+  uint64_t c = 0;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    c += col[k];
+    t[k] = static_cast<uint32_t>(c);
+    c >>= 32;
+  }
+  t[16] = static_cast<uint32_t>(c);
+}
+
+// a^2 the same way: the 28 products a_i a_j (i < j) once, the column sums
+// doubled, then the 8 squares.
+LANE_FN void sqr_wide(uint32_t t[17], const U256& a) {
+  uint64_t col[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    col[k] = 0;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = i + 1; j < 8; ++j) {
+      const uint64_t p = static_cast<uint64_t>(a.w[i]) * a.w[j];
+      col[i + j] += static_cast<uint32_t>(p);
+      col[i + j + 1] += p >> 32;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint64_t p = static_cast<uint64_t>(a.w[i]) * a.w[i];
+    col[2 * i] = (col[2 * i] << 1) + static_cast<uint32_t>(p);
+    col[2 * i + 1] = (col[2 * i + 1] << 1) + (p >> 32);
+  }
+  uint64_t c = 0;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    c += col[k];
+    t[k] = static_cast<uint32_t>(c);
+    c >>= 32;
+  }
+  t[16] = static_cast<uint32_t>(c);
 }
 
 // ---------------------------------------------------------------------------
 // The field mod P; every value canonical, in [0, P)
 // ---------------------------------------------------------------------------
 
-// r = t mod P for a 512-bit t, folding the high half by 2^256 = 2^32 + 977.
-LANE_FN void fp_reduce(U256& r, const uint32_t t[16]) {
-  uint64_t c = 0;
+// t mod P for a 512-bit t = H 2^256 + L, folding H by 2^256 = 2^32 + 977:
+// L + 977 H + 2^32 H < 2^290, then its top words once more, then at most
+// one wrap and one subtraction of P.
+LANE_FN U256 fp_reduce(const uint32_t t[16]) {
+  uint32_t acc[10];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    c += static_cast<uint64_t>(t[i]) + static_cast<uint64_t>(t[8 + i]) * 977u;
-    if (i > 0) {
-      c += t[7 + i];
-    }
-    r.w[i] = static_cast<uint32_t>(c);
-    c >>= 32;
+    acc[i] = t[i];
   }
-  c += t[15];  // < 2^33: the value is r + c 2^256
-  uint64_t d = static_cast<uint64_t>(r.w[0]) + c * 977u;
-  r.w[0] = static_cast<uint32_t>(d);
-  d >>= 32;
-  d += static_cast<uint64_t>(r.w[1]) + c;
-  r.w[1] = static_cast<uint32_t>(d);
-  d >>= 32;
+  acc[8] = 0;
+  acc[9] = 0;
+  mac_alternate(&acc[0], t[8], t[10], t[12], t[14], 977u);
+  mac_alternate(&acc[1], t[9], t[11], t[13], t[15], 977u);
+  acc[9] += add8(&acc[1], &t[8], 0);
+  // + top (2^32 + 977), top = acc[8] + 2^32 acc[9] < 2^34.
+  const uint64_t top = acc[8] | (static_cast<uint64_t>(acc[9]) << 32);
+  const uint64_t lo = top * 977u;
+  const uint64_t mid = (lo >> 32) + static_cast<uint32_t>(top);
+  uint32_t f[8] = {static_cast<uint32_t>(lo), static_cast<uint32_t>(mid),
+                   static_cast<uint32_t>(top >> 32) + static_cast<uint32_t>(mid >> 32),
+                   0, 0, 0, 0, 0};
+  U256 r;
 #pragma unroll
-  for (int i = 2; i < 8; ++i) {
-    d += r.w[i];
-    r.w[i] = static_cast<uint32_t>(d);
-    d >>= 32;
+  for (int i = 0; i < 8; ++i) {
+    r.w[i] = acc[i];
   }
-  if (d) {  // wrapped past 2^256; r is small now, so this cannot wrap again
-    d = static_cast<uint64_t>(r.w[0]) + 977u;
-    r.w[0] = static_cast<uint32_t>(d);
-    d >>= 32;
-    d += static_cast<uint64_t>(r.w[1]) + 1u;
-    r.w[1] = static_cast<uint32_t>(d);
-    d >>= 32;
+  const uint32_t m = 0u - add8(r.w, f, 0);  // wrapped past 2^256: r is small now
+  uint32_t g[8] = {977u & m, 1u & m, 0, 0, 0, 0, 0, 0};
+  add8(r.w, g, 0);
+  U256 d = r;
+  const uint32_t borrow = sub8(d.w, kP);
+  return select(borrow != 0, r, d);
+}
+
+LANE_MUL U256 fp_mul(U256 a, U256 b) {
+  uint32_t t[17];
+  mul_wide(t, a, b);
+  return fp_reduce(t);
+}
+
+LANE_MUL U256 fp_sqr(U256 a) {
+  uint32_t t[17];
+  sqr_wide(t, a);
+  return fp_reduce(t);
+}
+
+LANE_FN U256 fp_add(U256 a, const U256& b) {
+  const uint32_t carry = add8(a.w, b.w, 0);
+  U256 d = a;
+  const uint32_t borrow = sub8(d.w, kP);
+  return select((carry | (borrow ^ 1u)) != 0, d, a);
+}
+
+LANE_FN U256 fp_sub(U256 a, const U256& b) {
+  const uint32_t m = 0u - sub8(a.w, b.w);
+  uint32_t p[8];
 #pragma unroll
-    for (int i = 2; i < 8; ++i) {
-      d += r.w[i];
-      r.w[i] = static_cast<uint32_t>(d);
-      d >>= 32;
-    }
+  for (int i = 0; i < 8; ++i) {
+    p[i] = kP[i] & m;
   }
-  if (geq(r, kP)) {
-    sub_words(r, r, kP);
-  }
+  add8(a.w, p, 0);
+  return a;
 }
 
-LANE_FN void fp_mul(U256& r, const U256& a, const U256& b) {
-  uint32_t t[16];
-  mul_wide(t, a, b.w);
-  fp_reduce(r, t);
+LANE_FN U256 fp_neg(const U256& a) { return fp_sub(small(0), a); }
+
+LANE_FN U256 fp_sqr_n(U256 a, int n) {
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) {
+    a = fp_sqr(a);
+  }
+  return a;
 }
 
-LANE_FN void fp_sqr(U256& r, const U256& a) { fp_mul(r, a, a); }
-
-LANE_FN void fp_add(U256& r, const U256& a, const U256& b) {
-  const uint32_t carry = add_words(r, a, b.w);
-  if (carry || geq(r, kP)) {
-    sub_words(r, r, kP);
-  }
-}
-
-LANE_FN void fp_sub(U256& r, const U256& a, const U256& b) {
-  if (sub_words(r, a, b.w)) {
-    add_words(r, r, kP);
-  }
-}
-
-LANE_FN void fp_neg(U256& r, const U256& a) {
-  if (is_zero(a)) {
-    r = a;
-  } else {
-    U256 p;
-    load(p, kP);
-    sub_words(r, p, a.w);
-  }
-}
-
-// r = a^e mod P for a fixed exponent e (8 words), 4-bit windows MSB first.
-LANE_BIG void fp_pow(U256& r, const U256& a, const uint32_t* e) {
-  U256 tab[16];
-  set_small(tab[0], 1);
-  tab[1] = a;
-  for (int k = 2; k < 16; ++k) {
-    fp_mul(tab[k], tab[k - 1], a);
-  }
-  set_small(r, 1);
-  for (int win = 63; win >= 0; --win) {
-    if (win != 63) {
-      fp_sqr(r, r);
-      fp_sqr(r, r);
-      fp_sqr(r, r);
-      fp_sqr(r, r);
-    }
-    const uint32_t nib = (e[win >> 3] >> ((win & 7) * 4)) & 15u;
-    if (nib) {
-      fp_mul(r, r, tab[nib]);
-    }
-  }
+// a^((P+1)/4): the square root of a where one exists.  libsecp256k1's
+// addition chain: x_k = a^(2^k - 1).
+LANE_FN U256 fp_sqrt(const U256& a) {
+  const U256 x2 = fp_mul(fp_sqr(a), a);
+  const U256 x3 = fp_mul(fp_sqr(x2), a);
+  const U256 x6 = fp_mul(fp_sqr_n(x3, 3), x3);
+  const U256 x9 = fp_mul(fp_sqr_n(x6, 3), x3);
+  const U256 x11 = fp_mul(fp_sqr_n(x9, 2), x2);
+  const U256 x22 = fp_mul(fp_sqr_n(x11, 11), x11);
+  const U256 x44 = fp_mul(fp_sqr_n(x22, 22), x22);
+  const U256 x88 = fp_mul(fp_sqr_n(x44, 44), x44);
+  const U256 x176 = fp_mul(fp_sqr_n(x88, 88), x88);
+  const U256 x220 = fp_mul(fp_sqr_n(x176, 44), x44);
+  const U256 x223 = fp_mul(fp_sqr_n(x220, 3), x3);
+  U256 t = fp_mul(fp_sqr_n(x223, 23), x22);
+  t = fp_mul(fp_sqr_n(t, 6), x2);
+  return fp_sqr_n(t, 2);
 }
 
 // ---------------------------------------------------------------------------
-// Scalars mod N: Montgomery multiplication with R = 2^256
+// Inversion: Bernstein-Yang safegcd with 30-bit signed limbs
 // ---------------------------------------------------------------------------
 
-// r = a b R^-1 mod N for a, b < N (CIOS).
-LANE_BIG void mont_mul(U256& r, const U256& a, const U256& b) {
+struct S30 {
+  int32_t v[9];  // value = sum v[i] 2^(30 i)
+};
+
+constexpr int32_t kM30 = 0x3FFFFFFF;
+
+LANE_FN S30 to_s30(const U256& a) {
+  S30 r;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    const int bit = 30 * i;
+    const int word = bit >> 5;
+    const int sh = bit & 31;
+    uint32_t v = a.w[word] >> sh;
+    if (sh > 2 && word + 1 < 8) {
+      v |= a.w[word + 1] << (32 - sh);
+    }
+    r.v[i] = static_cast<int32_t>(v & kM30);
+  }
+  return r;
+}
+
+// Limbs in [0, 2^30), value below 2^256.
+LANE_FN U256 from_s30(const S30& a) {
+  U256 r = small(0);
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    const int bit = 30 * i;
+    const int word = bit >> 5;
+    const int sh = bit & 31;
+    const uint32_t v = static_cast<uint32_t>(a.v[i]);
+    r.w[word] |= v << sh;
+    if (sh > 2 && word + 1 < 8) {
+      r.w[word + 1] |= v >> (32 - sh);
+    }
+  }
+  return r;
+}
+
+// 30 divsteps on the low bits of f (odd) and g, branch-free; returns the
+// new zeta = -(delta + 1/2) and the transition matrix t = (u, v, q, r),
+// scaled by 2^30.
+LANE_FN int32_t divsteps_30(int32_t zeta, uint32_t f, uint32_t g, int32_t t[4]) {
+  uint32_t u = 1, v = 0, q = 0, r = 1;
+#pragma unroll 5
+  for (int i = 0; i < 30; ++i) {
+    uint32_t c1 = static_cast<uint32_t>(zeta >> 31);  // zeta < 0
+    const uint32_t c2 = 0u - (g & 1u);                // g odd
+    const uint32_t x = (f ^ c1) - c1;
+    const uint32_t y = (u ^ c1) - c1;
+    const uint32_t z = (v ^ c1) - c1;
+    g += x & c2;
+    q += y & c2;
+    r += z & c2;
+    c1 &= c2;
+    zeta = (zeta ^ static_cast<int32_t>(c1)) - 1;
+    f += g & c1;
+    u += q & c1;
+    v += r & c1;
+    g >>= 1;
+    u <<= 1;
+    v <<= 1;
+  }
+  t[0] = static_cast<int32_t>(u);
+  t[1] = static_cast<int32_t>(v);
+  t[2] = static_cast<int32_t>(q);
+  t[3] = static_cast<int32_t>(r);
+  return zeta;
+}
+
+// (d, e) = t (d, e) / 2^30 mod M, keeping both in (-2M, M).
+LANE_FN void update_de_30(S30& d, S30& e, const int32_t t[4], const int32_t* mod, uint32_t inv) {
+  const int32_t u = t[0], v = t[1], q = t[2], r = t[3];
+  const int32_t sd = d.v[8] >> 31, se = e.v[8] >> 31;
+  int32_t md = (u & sd) + (v & se);
+  int32_t me = (q & sd) + (r & se);
+  int64_t cd = static_cast<int64_t>(u) * d.v[0] + static_cast<int64_t>(v) * e.v[0];
+  int64_t ce = static_cast<int64_t>(q) * d.v[0] + static_cast<int64_t>(r) * e.v[0];
+  md -= static_cast<int32_t>((inv * static_cast<uint32_t>(cd) + static_cast<uint32_t>(md)) &
+                             kM30);
+  me -= static_cast<int32_t>((inv * static_cast<uint32_t>(ce) + static_cast<uint32_t>(me)) &
+                             kM30);
+  cd += static_cast<int64_t>(mod[0]) * md;
+  ce += static_cast<int64_t>(mod[0]) * me;
+  cd >>= 30;
+  ce >>= 30;
+#pragma unroll
+  for (int i = 1; i < 9; ++i) {
+    cd += static_cast<int64_t>(u) * d.v[i] + static_cast<int64_t>(v) * e.v[i];
+    ce += static_cast<int64_t>(q) * d.v[i] + static_cast<int64_t>(r) * e.v[i];
+    cd += static_cast<int64_t>(mod[i]) * md;
+    ce += static_cast<int64_t>(mod[i]) * me;
+    d.v[i - 1] = static_cast<int32_t>(cd) & kM30;
+    cd >>= 30;
+    e.v[i - 1] = static_cast<int32_t>(ce) & kM30;
+    ce >>= 30;
+  }
+  d.v[8] = static_cast<int32_t>(cd);
+  e.v[8] = static_cast<int32_t>(ce);
+}
+
+// (f, g) = t (f, g) / 2^30, exactly.
+LANE_FN void update_fg_30(S30& f, S30& g, const int32_t t[4]) {
+  const int32_t u = t[0], v = t[1], q = t[2], r = t[3];
+  int64_t cf = static_cast<int64_t>(u) * f.v[0] + static_cast<int64_t>(v) * g.v[0];
+  int64_t cg = static_cast<int64_t>(q) * f.v[0] + static_cast<int64_t>(r) * g.v[0];
+  cf >>= 30;
+  cg >>= 30;
+#pragma unroll
+  for (int i = 1; i < 9; ++i) {
+    cf += static_cast<int64_t>(u) * f.v[i] + static_cast<int64_t>(v) * g.v[i];
+    cg += static_cast<int64_t>(q) * f.v[i] + static_cast<int64_t>(r) * g.v[i];
+    f.v[i - 1] = static_cast<int32_t>(cf) & kM30;
+    cf >>= 30;
+    g.v[i - 1] = static_cast<int32_t>(cg) & kM30;
+    cg >>= 30;
+  }
+  f.v[8] = static_cast<int32_t>(cf);
+  g.v[8] = static_cast<int32_t>(cg);
+}
+
+LANE_FN void carry_30(S30& r) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    r.v[i + 1] += r.v[i] >> 30;
+    r.v[i] &= kM30;
+  }
+}
+
+// r in (-2M, M) to [0, M), negated first where sign < 0.
+LANE_FN void normalize_30(S30& r, int32_t sign, const int32_t* mod) {
+  int32_t add = r.v[8] >> 31;
+  const int32_t neg = sign >> 31;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    r.v[i] += mod[i] & add;
+    r.v[i] = (r.v[i] ^ neg) - neg;
+  }
+  carry_30(r);
+  add = r.v[8] >> 31;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    r.v[i] += mod[i] & add;
+  }
+  carry_30(r);
+}
+
+// x^-1 mod M for 0 <= x < M (0 maps to 0): 20 x 30 = 600 divsteps, enough
+// for 256-bit inputs.
+LANE_FN U256 modinv(const U256& x, const int32_t* mod, uint32_t inv) {
+  S30 d, e, f, g = to_s30(x);
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    d.v[i] = 0;
+    e.v[i] = 0;
+    f.v[i] = mod[i];
+  }
+  e.v[0] = 1;
+  int32_t zeta = -1;
+#pragma unroll 1
+  for (int i = 0; i < 20; ++i) {
+    int32_t t[4];
+    zeta = divsteps_30(zeta, static_cast<uint32_t>(f.v[0]), static_cast<uint32_t>(g.v[0]), t);
+    update_de_30(d, e, t, mod, inv);
+    update_fg_30(f, g, t);
+  }
+  normalize_30(d, f.v[8], mod);
+  return from_s30(d);
+}
+
+// ---------------------------------------------------------------------------
+// Scalars mod N: Montgomery multiplication with R = 2^256 (three per lane)
+// ---------------------------------------------------------------------------
+
+// a b R^-1 mod N for a, b < N (CIOS).
+LANE_FN U256 mont_mul(const U256& a, const U256& b) {
   uint32_t t[10];
+#pragma unroll
   for (int i = 0; i < 10; ++i) {
     t[i] = 0;
   }
-  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {  // unrolled: b.w[i] stays in registers
     uint64_t c = 0;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -384,211 +638,274 @@ LANE_BIG void mont_mul(U256& r, const U256& a, const U256& b) {
     t[7] = static_cast<uint32_t>(c);
     t[8] = t[9] + static_cast<uint32_t>(c >> 32);
   }
+  U256 r;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     r.w[i] = t[i];
   }
-  if (t[8] || geq(r, kN)) {
-    sub_words(r, r, kN);
-  }
-}
-
-// r = a^e in the Montgomery domain (a and r in Montgomery form).
-LANE_BIG void mont_pow(U256& r, const U256& a, const uint32_t* e) {
-  U256 tab[16];
-  load(tab[0], kMontOneN);
-  tab[1] = a;
-  for (int k = 2; k < 16; ++k) {
-    mont_mul(tab[k], tab[k - 1], a);
-  }
-  load(r, kMontOneN);
-  for (int win = 63; win >= 0; --win) {
-    if (win != 63) {
-      mont_mul(r, r, r);
-      mont_mul(r, r, r);
-      mont_mul(r, r, r);
-      mont_mul(r, r, r);
-    }
-    const uint32_t nib = (e[win >> 3] >> ((win & 7) * 4)) & 15u;
-    if (nib) {
-      mont_mul(r, r, tab[nib]);
-    }
-  }
+  U256 d = r;
+  sub8(d.w, kN);
+  return select(t[8] != 0 || geq(r, kN), d, r);
 }
 
 // ---------------------------------------------------------------------------
 // The GLV split
 // ---------------------------------------------------------------------------
 
-// c = round(k g / 2^384), a 128-bit value.
-LANE_FN void mul_shift_384(U256& c, const U256& k, const uint32_t* g) {
-  uint32_t t[16];
-  mul_wide(t, k, g);
+// round(k g / 2^384), a 128-bit value.
+LANE_FN U256 mul_shift_384(const U256& k, const uint32_t* g) {
+  uint32_t t[17];
+  mul_wide(t, k, from_table(g));
+  U256 c = small(0);
   uint64_t carry = static_cast<uint64_t>(t[11]) + 0x80000000u;  // + 2^383
 #pragma unroll
   for (int i = 12; i < 16; ++i) {
     carry = (carry >> 32) + t[i];
     c.w[i - 12] = static_cast<uint32_t>(carry);
   }
-#pragma unroll
-  for (int i = 4; i < 8; ++i) {
-    c.w[i] = 0;
-  }
+  return c;
 }
 
-// r = a b mod 2^256.
-LANE_FN void mul_low(U256& r, const U256& a, const uint32_t* b) {
-  uint32_t t[16];
-  mul_wide(t, a, b);
+// a b mod 2^256.
+LANE_FN U256 mul_low(const U256& a, const uint32_t* b) {
+  uint32_t t[17];
+  mul_wide(t, a, from_table(b));
+  U256 r;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     r.w[i] = t[i];
   }
+  return r;
 }
 
 // |v| for a two's-complement v mod 2^256; returns true where v < 0.
 LANE_FN bool abs_signed(U256& v) {
   const bool neg = (v.w[7] >> 31) != 0;
-  if (neg) {
-    U256 zero;
-    set_small(zero, 0);
-    sub_words(v, zero, v.w);
-  }
+  U256 m = small(0);
+  sub8(m.w, v.w);
+  v = select(neg, m, v);
   return neg;
 }
 
 // k == s1 |k1| + s2 |k2| lambda (mod N) with |k1|, |k2| < 2^129.
-LANE_BIG void glv_split(const U256& k, U256& k1, bool& neg1, U256& k2, bool& neg2) {
-  U256 c1, c2, t;
-  mul_shift_384(c1, k, kGlvG1);
-  mul_shift_384(c2, k, kGlvG2);
-  mul_low(t, c1, kGlvA1);
-  sub_words(k1, k, t.w);
-  mul_low(t, c2, kGlvA2);
-  sub_words(k1, k1, t.w);
-  mul_low(k2, c1, kGlvNegB1);
-  mul_low(t, c2, kGlvB2);
-  sub_words(k2, k2, t.w);
+LANE_FN void glv_split(const U256& k, U256& k1, bool& neg1, U256& k2, bool& neg2) {
+  const U256 c1 = mul_shift_384(k, kGlvG1);
+  const U256 c2 = mul_shift_384(k, kGlvG2);
+  k1 = k;
+  sub8(k1.w, mul_low(c1, kGlvA1).w);
+  sub8(k1.w, mul_low(c2, kGlvA2).w);
+  k2 = mul_low(c1, kGlvNegB1);
+  sub8(k2.w, mul_low(c2, kGlvB2).w);
   neg1 = abs_signed(k1);
   neg2 = abs_signed(k2);
-}
-
-LANE_FN uint32_t nibble(const U256& k, int win) {
-  return (k.w[win >> 3] >> ((win & 7) * 4)) & 15u;
 }
 
 // ---------------------------------------------------------------------------
 // Jacobian points, y^2 = x^3 + 7
 // ---------------------------------------------------------------------------
 
-LANE_FN void set_infinity(Jac& p) {
-  set_small(p.x, 1);
-  set_small(p.y, 1);
-  set_small(p.z, 0);
-}
+LANE_FN Jac infinity() { return Jac{small(1), small(1), small(0)}; }
 
-// p = 2p ("dbl-2009-l", a = 0); infinity stays infinity (Z3 = 2 Y Z).
-LANE_BIG void point_double(Jac& p) {
-  U256 a, b, c, d, e, f, t;
-  fp_sqr(a, p.x);
-  fp_sqr(b, p.y);
-  fp_sqr(c, b);
-  fp_add(t, p.x, b);
-  fp_sqr(t, t);
-  fp_sub(t, t, a);
-  fp_sub(t, t, c);
-  fp_add(d, t, t);  // D = 2((X + B)^2 - A - C)
-  fp_add(e, a, a);
-  fp_add(e, e, a);  // E = 3A
-  fp_sqr(f, e);
-  fp_mul(p.z, p.y, p.z);
-  fp_add(p.z, p.z, p.z);  // Z3 = 2 Y Z
-  fp_add(t, d, d);
-  fp_sub(p.x, f, t);  // X3 = F - 2D
-  fp_sub(t, d, p.x);
-  fp_mul(t, e, t);
-  fp_add(c, c, c);
-  fp_add(c, c, c);
-  fp_add(c, c, c);  // 8C
-  fp_sub(p.y, t, c);  // Y3 = E (D - X3) - 8C
+// 2p ("dbl-2009-l", a = 0); infinity stays infinity (Z3 = 2 Y Z).
+LANE_FN Jac point_double(const Jac& p) {
+  const U256 a = fp_sqr(p.x);
+  const U256 b = fp_sqr(p.y);
+  const U256 c = fp_sqr(b);
+  U256 t = fp_sqr(fp_add(p.x, b));
+  t = fp_sub(fp_sub(t, a), c);
+  const U256 d = fp_add(t, t);                // D = 2((X + B)^2 - A - C)
+  const U256 e = fp_add(fp_add(a, a), a);     // E = 3A
+  const U256 f = fp_sqr(e);
+  Jac r;
+  r.z = fp_mul(p.y, p.z);
+  r.z = fp_add(r.z, r.z);                     // Z3 = 2 Y Z
+  r.x = fp_sub(f, fp_add(d, d));              // X3 = F - 2D
+  U256 c8 = fp_add(c, c);
+  c8 = fp_add(c8, c8);
+  c8 = fp_add(c8, c8);
+  r.y = fp_sub(fp_mul(e, fp_sub(d, r.x)), c8);  // Y3 = E (D - X3) - 8C
+  return r;
 }
 
 // The tail shared by both additions: given H = U2 - U1 != 0, R = S2 - S1,
 // U1, S1 and Z3 / H, finish X3, Y3, Z3.
-LANE_FN void add_tail(Jac& p, const U256& h, const U256& rr, const U256& u1,
-                      const U256& s1, const U256& zh) {
-  U256 hh, hhh, v, t;
-  fp_sqr(hh, h);
-  fp_mul(hhh, hh, h);
-  fp_mul(v, u1, hh);
-  fp_sqr(t, rr);
-  fp_sub(t, t, hhh);
-  fp_sub(t, t, v);
-  fp_sub(p.x, t, v);  // X3 = R^2 - H^3 - 2 U1 H^2
-  fp_sub(t, v, p.x);
-  fp_mul(t, rr, t);
-  fp_mul(v, s1, hhh);
-  fp_sub(p.y, t, v);  // Y3 = R (U1 H^2 - X3) - S1 H^3
-  fp_mul(p.z, zh, h);
+LANE_FN Jac add_tail(const U256& h, const U256& rr, const U256& u1, const U256& s1,
+                     const U256& zh) {
+  const U256 hh = fp_sqr(h);
+  const U256 hhh = fp_mul(hh, h);
+  const U256 v = fp_mul(u1, hh);
+  Jac p;
+  p.x = fp_sub(fp_sub(fp_sub(fp_sqr(rr), hhh), v), v);  // X3 = R^2 - H^3 - 2 U1 H^2
+  p.y = fp_sub(fp_mul(rr, fp_sub(v, p.x)), fp_mul(s1, hhh));  // Y3 = R (U1 H^2 - X3) - S1 H^3
+  p.z = fp_mul(zh, h);
+  return p;
 }
 
-// p += (qx, qy), an affine point.  Complete: infinity, P == Q, P == -Q.
-LANE_BIG void point_add_affine(Jac& p, const U256& qx, const U256& qy) {
+// p + (qx, qy), an affine point.  Complete: infinity, P == Q, P == -Q.
+LANE_FN Jac add_affine(const Jac& p, const U256& qx, const U256& qy) {
   if (is_zero(p.z)) {
-    p.x = qx;
-    p.y = qy;
-    set_small(p.z, 1);
-    return;
+    return Jac{qx, qy, small(1)};
   }
-  U256 z1z1, u2, s2, h, rr;
-  fp_sqr(z1z1, p.z);
-  fp_mul(u2, qx, z1z1);
-  fp_mul(s2, qy, p.z);
-  fp_mul(s2, s2, z1z1);
-  fp_sub(h, u2, p.x);
-  fp_sub(rr, s2, p.y);
+  const U256 z1z1 = fp_sqr(p.z);
+  const U256 h = fp_sub(fp_mul(qx, z1z1), p.x);
+  const U256 rr = fp_sub(fp_mul(fp_mul(qy, p.z), z1z1), p.y);
   if (is_zero(h)) {
-    if (is_zero(rr)) {
-      point_double(p);
-    } else {
-      set_infinity(p);
-    }
-    return;
+    return is_zero(rr) ? point_double(p) : infinity();
   }
-  const U256 u1 = p.x, s1 = p.y, z1 = p.z;
-  add_tail(p, h, rr, u1, s1, z1);
+  return add_tail(h, rr, p.x, p.y, p.z);
 }
 
-// p += q, both Jacobian.  Complete: infinity, P == Q, P == -Q.
-LANE_BIG void point_add(Jac& p, const Jac& q) {
+// p + q, both Jacobian.  Complete: infinity, P == Q, P == -Q.
+LANE_FN Jac point_add(const Jac& p, const Jac& q) {
   if (is_zero(q.z)) {
-    return;
+    return p;
   }
   if (is_zero(p.z)) {
-    p = q;
-    return;
+    return q;
   }
-  U256 z1z1, z2z2, u1, u2, s1, s2, h, rr, zz;
-  fp_sqr(z1z1, p.z);
-  fp_sqr(z2z2, q.z);
-  fp_mul(u1, p.x, z2z2);
-  fp_mul(u2, q.x, z1z1);
-  fp_mul(s1, p.y, q.z);
-  fp_mul(s1, s1, z2z2);
-  fp_mul(s2, q.y, p.z);
-  fp_mul(s2, s2, z1z1);
-  fp_sub(h, u2, u1);
-  fp_sub(rr, s2, s1);
+  const U256 z1z1 = fp_sqr(p.z);
+  const U256 z2z2 = fp_sqr(q.z);
+  const U256 u1 = fp_mul(p.x, z2z2);
+  const U256 s1 = fp_mul(fp_mul(p.y, q.z), z2z2);
+  const U256 h = fp_sub(fp_mul(q.x, z1z1), u1);
+  const U256 rr = fp_sub(fp_mul(fp_mul(q.y, p.z), z1z1), s1);
   if (is_zero(h)) {
-    if (is_zero(rr)) {
-      point_double(p);
-    } else {
-      set_infinity(p);
-    }
-    return;
+    return is_zero(rr) ? point_double(p) : infinity();
   }
-  fp_mul(zz, p.z, q.z);
-  add_tail(p, h, rr, u1, s1, zz);
+  return add_tail(h, rr, u1, s1, fp_mul(p.z, q.z));
+}
+
+// ---------------------------------------------------------------------------
+// u1 G by the comb; u2 R by the GLV ladder
+// ---------------------------------------------------------------------------
+
+// Entry (w, d) of the comb table: d 2^(8w) G as x, y words (row d = 0 unused).
+LANE_FN void load_comb(U256& x, U256& y, const uint32_t* gtab, int w, uint32_t d) {
+  const uint32_t* row = gtab + (static_cast<long long>(w) * 256 + d) * kCombWords;
+#if defined(__CUDA_ARCH__)
+  const uint4* q = reinterpret_cast<const uint4*>(row);
+  const uint4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2), e = __ldg(q + 3);
+  x = U256{{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w}};
+  y = U256{{c.x, c.y, c.z, c.w, e.x, e.y, e.z, e.w}};
+#else
+  for (int i = 0; i < 8; ++i) {
+    x.w[i] = row[i];
+    y.w[i] = row[8 + i];
+  }
+#endif
+}
+
+// k G as the sum of the table entries of k's bytes, least significant first;
+// the next entry's load is issued before the current addition.  The partial
+// sum is (k mod 2^(8w)) G, never +-(d 2^(8w)) G, so after the first entry
+// the additions meet no exceptional case.
+LANE_FN Jac comb_mul(U256 k, const uint32_t* gtab) {
+  Jac acc = infinity();
+  uint32_t d = k.w[0] & 255u;
+  U256 nx, ny;
+  load_comb(nx, ny, gtab, 0, d);
+#pragma unroll 1
+  for (int w = 0; w < kCombWindows; ++w) {
+    const U256 x = nx, y = ny;
+    const uint32_t dw = d;
+#pragma unroll
+    for (int i = 0; i < 7; ++i) {  // k >>= 8
+      k.w[i] = (k.w[i] >> 8) | (k.w[i + 1] << 24);
+    }
+    k.w[7] >>= 8;
+    if (w + 1 < kCombWindows) {
+      d = k.w[0] & 255u;
+      load_comb(nx, ny, gtab, w + 1, d);
+    }
+    if (dw) {
+      acc = add_affine(acc, x, y);
+    }
+  }
+  return acc;
+}
+
+// d R for d = 1..15 (Jacobian) in a per-lane column: on the card, shared
+// memory with one column per thread of the block; on the host, an array.
+struct RTable {
+  uint32_t* base;
+  int stride;
+
+  LANE_FN void put(int d, const Jac& p) const {
+    uint32_t* at = base + (d - 1) * kRWords * stride;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      at[i * stride] = p.x.w[i];
+      at[(8 + i) * stride] = p.y.w[i];
+      at[(16 + i) * stride] = p.z.w[i];
+    }
+  }
+
+  LANE_FN Jac get(uint32_t d) const {
+    const uint32_t* at = base + (static_cast<int>(d) - 1) * kRWords * stride;
+    Jac p;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      p.x.w[i] = at[i * stride];
+      p.y.w[i] = at[(8 + i) * stride];
+      p.z.w[i] = at[(16 + i) * stride];
+    }
+    return p;
+  }
+};
+
+// The top 4-bit window of a half-scalar below 2^132 (bits 128..131), then
+// k <<= 4 over its five low words.
+LANE_FN uint32_t pop_nibble(U256& k) {
+  const uint32_t d = k.w[4] & 15u;
+#pragma unroll
+  for (int i = 4; i > 0; --i) {
+    k.w[i] = (k.w[i] << 4) | (k.w[i - 1] >> 28);
+  }
+  k.w[0] <<= 4;
+  return d;
+}
+
+// d R for d = 1..15 into the table, R = (rx, ry) on the curve.
+LANE_FN void build_r_table(const U256& rx, const U256& ry, const RTable& tab) {
+  Jac p{rx, ry, small(1)};
+  tab.put(1, p);
+  p = point_double(p);
+  tab.put(2, p);
+#pragma unroll 1
+  for (int d = 3; d <= kRTable; ++d) {
+    p = add_affine(p, rx, ry);
+    tab.put(d, p);
+  }
+}
+
+// +-k R (neg: -) or +-k phi(R) (phi: the table's X times beta) for a GLV
+// half k < 2^132: a 33-window ladder, 4 doublings and at most one addition
+// per window.  The partial sums are small multiples of R, never +-d R or
+// +-d lambda R, so only the first addition (to infinity) is exceptional.
+LANE_FN Jac half_mul(U256 k, bool neg, bool phi, const RTable& tab) {
+  const U256 beta = from_table(kBeta);
+  Jac acc = infinity();
+#pragma unroll 1
+  for (int win = kWindows - 1; win >= 0; --win) {
+    if (win != kWindows - 1) {
+#pragma unroll 1
+      for (int i = 0; i < 4; ++i) {
+        acc = point_double(acc);
+      }
+    }
+    const uint32_t d = pop_nibble(k);
+    if (d) {
+      Jac q = tab.get(d);
+      if (phi) {
+        q.x = fp_mul(q.x, beta);
+      }
+      if (neg) {
+        q.y = fp_neg(q.y);
+      }
+      acc = point_add(acc, q);
+    }
+  }
+  return acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -611,7 +928,7 @@ LANE_FN void exact_carry(uint32_t c[kLimbs], const int32_t* limbs) {
 
 // Canonical limbs -> the low 256 bits as words; returns bits 256..259.
 LANE_FN uint32_t limbs_to_words(U256& r, const uint32_t c[kLimbs]) {
-  set_small(r, 0);
+  r = small(0);
 #pragma unroll
   for (int i = 0; i < kLimbs; ++i) {
     const int bit = kLimbBits * i;
@@ -649,7 +966,8 @@ LANE_FN bool scalar_in_range(U256& r, const int32_t* limbs) {
 }
 
 // z mod N from 8 little-endian value words, or from 20 limbs (< 2^260).
-LANE_FN void scalar_mod_n(U256& z, const int32_t* in, bool as_limbs) {
+LANE_FN U256 scalar_mod_n(const int32_t* in, bool as_limbs) {
+  U256 z;
   uint32_t top = 0;
   if (as_limbs) {
     uint32_t c[kLimbs];
@@ -671,9 +989,9 @@ LANE_FN void scalar_mod_n(U256& z, const int32_t* in, bool as_limbs) {
     }
   }
   // The value is below 2^256 + 2^133 < 2N, so one subtraction reduces it.
-  if (top || geq(z, kN)) {
-    sub_words(z, z, kN);
-  }
+  U256 d = z;
+  sub8(d.w, kN);
+  return select(top != 0 || geq(z, kN), d, z);
 }
 
 LANE_FN uint32_t bswap32(uint32_t x) {
@@ -704,114 +1022,74 @@ LANE_FN void address_words(int32_t* out, const U256& x, const U256& y) {
   out[4] = static_cast<int32_t>(static_cast<uint32_t>(a[3] >> 32));
 }
 
-// One lane: returns ok; writes x, y (20 limbs each) and addr (5 words).
-LANE_BIG bool recover_lane(const int32_t* z_in, bool z_limbs, const int32_t* r_limbs,
-                           const int32_t* s_limbs, int32_t v, int32_t* x_out, int32_t* y_out,
-                           int32_t* addr_out) {
+// A lane's parsed inputs; ok: 0 < r < N, 0 < s < N, v in {0, 1}.
+struct LaneIn {
   U256 r, s, z;
-  bool ok = scalar_in_range(r, r_limbs);
-  ok = scalar_in_range(s, s_limbs) && ok;
-  ok = ok && (v == 0 || v == 1);
-  scalar_mod_n(z, z_in, z_limbs);
+  bool ok;
+};
 
-  // R = (r, y): y^2 = r^3 + 7 with the parity of v.
-  U256 y2, y, t;
-  fp_sqr(t, r);
-  fp_mul(t, t, r);
-  U256 seven;
-  set_small(seven, 7);
-  fp_add(y2, t, seven);
-  fp_pow(y, y2, kExpSqrt);
-  fp_sqr(t, y);
-  ok = ok && equal(t, y2);
+LANE_FN LaneIn read_lane(const int32_t* z_in, bool z_limbs, const int32_t* r_limbs,
+                         const int32_t* s_limbs, int32_t v) {
+  LaneIn in;
+  in.ok = scalar_in_range(in.r, r_limbs);
+  in.ok = scalar_in_range(in.s, s_limbs) && in.ok;
+  in.ok = in.ok && (v == 0 || v == 1);
+  in.z = scalar_mod_n(z_in, z_limbs);
+  return in;
+}
+
+// The R side's first phase: R = (r, y), y^2 = r^3 + 7 with the parity of v
+// (returns false where r is no x-coordinate), and its table of d R.
+LANE_FN bool r_side(const LaneIn& in, int32_t v, const RTable& tab) {
+  const U256 y2 = fp_add(fp_mul(fp_sqr(in.r), in.r), small(7));
+  U256 y = fp_sqrt(y2);
+  const bool on_curve = equal(fp_sqr(y), y2);
   if ((y.w[0] & 1u) != static_cast<uint32_t>(v)) {
-    fp_neg(y, y);
+    y = fp_neg(y);
   }
+  build_r_table(in.r, y, tab);
+  return on_curve;
+}
 
-  // u1 = -z r^-1, u2 = s r^-1 (mod N).  rinv is in Montgomery form, so a
-  // Montgomery product with a plain value gives a plain value.
-  U256 rinv, u1, u2;
-  load(rinv, kMontR2N);
-  mont_mul(t, r, rinv);
-  mont_pow(rinv, t, kExpInvN);
-  if (!is_zero(z)) {
-    U256 n;
-    load(n, kN);
-    sub_words(z, n, z.w);
-  }
-  mont_mul(u1, z, rinv);
-  mont_mul(u2, s, rinv);
+// The G side's first phase: u1 = -z r^-1 and u2 = s r^-1 (mod N), u2's
+// GLV halves, and u1 G by the comb.  r^-1 R is in Montgomery form, so a
+// Montgomery product with a plain value gives a plain value.
+LANE_FN Jac g_side(const LaneIn& in, const uint32_t* gtab, U256& k1, bool& n1, U256& k2,
+                   bool& n2) {
+  const U256 rinv = mont_mul(modinv(in.r, kN30, kN30Inv), from_table(kMontR2N));
+  U256 negz = from_table(kN);
+  sub8(negz.w, in.z.w);
+  negz = select(is_zero(in.z), in.z, negz);
+  glv_split(mont_mul(in.s, rinv), k1, n1, k2, n2);
+  return comb_mul(mont_mul(negz, rinv), gtab);
+}
 
-  U256 a1, a2, b1, b2;
-  bool na1, na2, nb1, nb2;
-  glv_split(u1, a1, na1, a2, na2);
-  glv_split(u2, b1, nb1, b2, nb2);
-
-  // d*R for d = 1..15, Jacobian; row 0 unused.
-  Jac qtab[16];
-  qtab[1].x = r;
-  qtab[1].y = y;
-  set_small(qtab[1].z, 1);
-  qtab[2] = qtab[1];
-  point_double(qtab[2]);
-  for (int d = 3; d < 16; ++d) {
-    qtab[d] = qtab[d - 1];
-    point_add_affine(qtab[d], r, y);
-  }
-  U256 beta;
-  load(beta, kBeta);
-
-  Jac acc;
-  set_infinity(acc);
-  for (int win = kWindows - 1; win >= 0; --win) {
-    if (win != kWindows - 1) {
-      point_double(acc);
-      point_double(acc);
-      point_double(acc);
-      point_double(acc);
-    }
-    uint32_t d = nibble(a1, win);
-    if (d) {
-      U256 gx, gy;
-      load(gx, kGx[d]);
-      load(gy, kGy[d]);
-      if (na1) fp_neg(gy, gy);
-      point_add_affine(acc, gx, gy);
-    }
-    d = nibble(a2, win);
-    if (d) {
-      U256 gx, gy;
-      load(gx, kGBetaX[d]);
-      load(gy, kGy[d]);
-      if (na2) fp_neg(gy, gy);
-      point_add_affine(acc, gx, gy);
-    }
-    d = nibble(b1, win);
-    if (d) {
-      Jac q = qtab[d];
-      if (nb1) fp_neg(q.y, q.y);
-      point_add(acc, q);
-    }
-    d = nibble(b2, win);
-    if (d) {
-      Jac q = qtab[d];
-      fp_mul(q.x, q.x, beta);
-      if (nb2) fp_neg(q.y, q.y);
-      point_add(acc, q);
-    }
-  }
-  ok = ok && !is_zero(acc.z);
-
-  U256 zinv, zi2, qx, qy;
-  fp_pow(zinv, acc.z, kExpInvP);
-  fp_sqr(zi2, zinv);
-  fp_mul(qx, acc.x, zi2);
-  fp_mul(zi2, zi2, zinv);
-  fp_mul(qy, acc.y, zi2);
+// Q in affine coordinates: x, y (20 limbs each) and the address (5 words);
+// returns false where Q is infinity.
+LANE_FN bool finish(const Jac& q, int32_t* x_out, int32_t* y_out, int32_t* addr_out) {
+  const U256 zinv = modinv(q.z, kP30, kP30Inv);
+  const U256 zi2 = fp_sqr(zinv);
+  const U256 qx = fp_mul(q.x, zi2);
+  const U256 qy = fp_mul(q.y, fp_mul(zi2, zinv));
   words_to_limbs(x_out, qx);
   words_to_limbs(y_out, qy);
   address_words(addr_out, qx, qy);
-  return ok;
+  return !is_zero(q.z);
+}
+
+// One lane, its two sides one after the other (the card runs them on two
+// warps): Q = k1 R + (k2 phi(R) + u1 G).  Returns ok.
+LANE_FN bool recover_lane(const int32_t* z_in, bool z_limbs, const int32_t* r_limbs,
+                          const int32_t* s_limbs, int32_t v, const uint32_t* gtab,
+                          const RTable& tab, int32_t* x_out, int32_t* y_out, int32_t* addr_out) {
+  const LaneIn in = read_lane(z_in, z_limbs, r_limbs, s_limbs, v);
+  const bool on_curve = r_side(in, v, tab);
+  U256 k1, k2;
+  bool n1, n2;
+  const Jac g = g_side(in, gtab, k1, n1, k2, n2);
+  const Jac b = point_add(half_mul(k2, n2, true, tab), g);
+  const Jac q = point_add(half_mul(k1, n1, false, tab), b);
+  return finish(q, x_out, y_out, addr_out) && in.ok && on_curve;
 }
 
 }  // namespace secp
@@ -822,42 +1100,91 @@ LANE_BIG bool recover_lane(const int32_t* z_in, bool z_limbs, const int32_t* r_l
 
 namespace {
 
-constexpr int kThreads = 32;
+constexpr int kLanes = 32;  // lanes per block; each lane has a thread in each of two warps
 
-__global__ void __launch_bounds__(kThreads)
+// Warp 0 runs each lane's R side (square root, table, k1 R, the end), warp 1
+// its G side (r^-1, the GLV split, the comb, k2 phi(R) + u1 G); they meet
+// in shared memory at three barriers.
+__global__ void __launch_bounds__(2 * kLanes)
 secp256k1_recover_kernel(const int32_t* __restrict__ z, int z_width, const int32_t* __restrict__ r,
                          const int32_t* __restrict__ s, const int32_t* __restrict__ v,
-                         int32_t* __restrict__ x_out, int32_t* __restrict__ y_out,
-                         int32_t* __restrict__ addr_out, uint8_t* __restrict__ ok_out,
-                         long long n) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n) {
-    return;
+                         const uint32_t* __restrict__ gtab, int32_t* __restrict__ x_out,
+                         int32_t* __restrict__ y_out, int32_t* __restrict__ addr_out,
+                         uint8_t* __restrict__ ok_out, long long n) {
+  __shared__ uint32_t rtab[secp::kRTable * secp::kRWords * kLanes];  // 46,080 B
+  __shared__ uint32_t half1[6 * kLanes];                               // k1 (5 words), n1
+  const int lane = threadIdx.x % kLanes;
+  const bool g_warp = threadIdx.x >= kLanes;
+  const long long i = static_cast<long long>(blockIdx.x) * kLanes + lane;
+  const bool live = i < n;
+  const secp::RTable tab{rtab + lane, kLanes};
+  secp::LaneIn in;
+  secp::U256 k2;
+  secp::Jac g, acc;
+  bool n2 = false, on_curve = false;
+  if (live) {
+    in = secp::read_lane(z + i * z_width, z_width == secp::kLimbs, r + i * secp::kLimbs,
+                         s + i * secp::kLimbs, v[i]);
+    if (g_warp) {
+      secp::U256 k1;
+      bool n1;
+      g = secp::g_side(in, gtab, k1, n1, k2, n2);
+#pragma unroll
+      for (int w = 0; w < 5; ++w) {
+        half1[w * kLanes + lane] = k1.w[w];  // below 2^132
+      }
+      half1[5 * kLanes + lane] = n1;
+    } else {
+      on_curve = secp::r_side(in, v[i], tab);
+    }
   }
-  ok_out[i] = secp::recover_lane(z + i * z_width, z_width == secp::kLimbs, r + i * secp::kLimbs,
-                                 s + i * secp::kLimbs, v[i], x_out + i * secp::kLimbs,
-                                 y_out + i * secp::kLimbs, addr_out + i * 5);
+  __syncthreads();
+  if (live) {
+    if (g_warp) {
+      acc = secp::point_add(secp::half_mul(k2, n2, true, tab), g);
+    } else {
+      secp::U256 k1 = secp::small(0);
+#pragma unroll
+      for (int w = 0; w < 5; ++w) {
+        k1.w[w] = half1[w * kLanes + lane];
+      }
+      acc = secp::half_mul(k1, half1[5 * kLanes + lane] != 0, false, tab);
+    }
+  }
+  __syncthreads();  // the table is free: the G side's sum goes into its first entry
+  if (live && g_warp) {
+    tab.put(1, acc);
+  }
+  __syncthreads();
+  if (live && !g_warp) {
+    const bool finite = secp::finish(secp::point_add(acc, tab.get(1)), x_out + i * secp::kLimbs,
+                                     y_out + i * secp::kLimbs, addr_out + i * 5);
+    ok_out[i] = finite && in.ok && on_curve;
+  }
 }
 
 }  // namespace
 
 // C entry point, bound with ctypes.  n lanes: z holds z_width (8 value
-// words or 20 limbs) int32 per lane, r and s 20 limbs, v one int32; x_out and
-// y_out get 20 limbs, addr_out 5 stream words, ok_out one byte (a torch.bool).
-// Launches on `stream` (a cudaStream_t); returns the cudaError_t of the launch.
+// words or 20 limbs) int32 per lane, r and s 20 limbs, v one int32; gtab is
+// the comb table, (32, 256, 16) words on the card (see ops/ecrecover.py);
+// x_out and y_out get 20 limbs, addr_out 5 stream words, ok_out one byte (a
+// torch.bool).  Launches on `stream` (a cudaStream_t); returns the
+// cudaError_t of the launch.
 extern "C" int secp256k1_recover(const void* z, int z_width, const void* r, const void* s,
-                                 const void* v, void* x_out, void* y_out, void* addr_out,
-                                 void* ok_out, long long n, void* stream) {
+                                 const void* v, const void* gtab, void* x_out, void* y_out,
+                                 void* addr_out, void* ok_out, long long n, void* stream) {
   if (n <= 0) {
     return 0;
   }
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  secp256k1_recover_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
+  const long long blocks = (n + kLanes - 1) / kLanes;
+  secp256k1_recover_kernel<<<static_cast<unsigned int>(blocks), 2 * kLanes, 0,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(z), z_width, static_cast<const int32_t*>(r),
       static_cast<const int32_t*>(s), static_cast<const int32_t*>(v),
-      static_cast<int32_t*>(x_out), static_cast<int32_t*>(y_out),
-      static_cast<int32_t*>(addr_out), static_cast<uint8_t*>(ok_out), n);
+      static_cast<const uint32_t*>(gtab), static_cast<int32_t*>(x_out),
+      static_cast<int32_t*>(y_out), static_cast<int32_t*>(addr_out),
+      static_cast<uint8_t*>(ok_out), n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -866,13 +1193,31 @@ extern "C" int secp256k1_recover(const void* z, int z_width, const void* r, cons
 // The same lanes on the host, one after another: the CPU tests' view of the
 // kernel's arithmetic.  Not used by the port's wrappers.
 extern "C" int secp256k1_recover_host(const int32_t* z, int z_width, const int32_t* r,
-                                      const int32_t* s, const int32_t* v, int32_t* x_out,
-                                      int32_t* y_out, int32_t* addr_out, uint8_t* ok_out,
-                                      long long n) {
+                                      const int32_t* s, const int32_t* v, const uint32_t* gtab,
+                                      int32_t* x_out, int32_t* y_out, int32_t* addr_out,
+                                      uint8_t* ok_out, long long n) {
+  uint32_t rtab[secp::kRTable * secp::kRWords];
+  const secp::RTable tab{rtab, 1};
   for (long long i = 0; i < n; ++i) {
     ok_out[i] = secp::recover_lane(z + i * z_width, z_width == secp::kLimbs, r + i * secp::kLimbs,
-                                   s + i * secp::kLimbs, v[i], x_out + i * secp::kLimbs,
-                                   y_out + i * secp::kLimbs, addr_out + i * 5);
+                                   s + i * secp::kLimbs, v[i], gtab, tab,
+                                   x_out + i * secp::kLimbs, y_out + i * secp::kLimbs,
+                                   addr_out + i * 5);
+  }
+  return 0;
+}
+
+// The kernel's safegcd inversion on the host: n values of 8 little-endian
+// words, below the modulus (N where modulus_is_n, else P).
+extern "C" int secp256k1_modinv_host(const uint32_t* x, int modulus_is_n, uint32_t* out,
+                                     long long n) {
+  for (long long i = 0; i < n; ++i) {
+    const secp::U256 a = secp::from_table(x + 8 * i);
+    const secp::U256 r = modulus_is_n ? secp::modinv(a, secp::kN30, secp::kN30Inv)
+                                      : secp::modinv(a, secp::kP30, secp::kP30Inv);
+    for (int k = 0; k < 8; ++k) {
+      out[8 * i + k] = r.w[k];
+    }
   }
   return 0;
 }

@@ -3,8 +3,11 @@ its plain PyTorch version.
 
 The kernel ``csrc/secp256k1_recover.cu`` replaces the JAX package's XLA
 programs ``go_ibft_tpu/ops/secp256k1.py::ecdsa_recover`` and, in its
-epilogue, ``go_ibft_tpu/ops/keccak.py::pubkey_to_address_words``: one thread
-per lane, from the signed value to the 20-byte address, one launch per batch.
+epilogue, ``go_ibft_tpu/ops/keccak.py::pubkey_to_address_words``: two warps
+per block of 32 lanes, from the signed value to the 20-byte address, one
+launch per batch.  It adds u1*G from a fixed-base comb table,
+:func:`comb_table`, built here once from ``crypto.ecdsa``'s integers and
+uploaded once per card.
 
 * :func:`launch` runs the kernel on CUDA tensors and raises on any fault;
 * :func:`recover_plain` is the same function in PyTorch ops on any device:
@@ -25,18 +28,51 @@ stream words, ``ok`` ``(...)`` bool.  Where ``ok`` is false, ``x``, ``y`` and
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from .. import _build
+from ..crypto import ecdsa
 from . import keccak as dk
 from . import secp256k1 as sec
 
-__all__ = ["launch", "recover_plain", "recover"]
+__all__ = ["comb_table", "launch", "recover_plain", "recover"]
 
 _L = 20  # limbs per scalar / coordinate
 _Out = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+COMB_WINDOWS = 32  # 8-bit windows of a 256-bit scalar
+COMB_DIGITS = 256
+_comb_on_card: Dict[torch.device, torch.Tensor] = {}
+
+
+@functools.lru_cache(maxsize=1)
+def comb_table() -> np.ndarray:
+    """The kernel's fixed-base comb: ``d * 2**(8*w) * G`` for ``w < 32``,
+    ``d < 256``, affine, as a ``(32, 256, 16)`` uint32 array of
+    little-endian words, x then y; the rows ``d = 0`` are zero and unused."""
+    rows = bytearray(COMB_WINDOWS * COMB_DIGITS * 64)
+    base: ecdsa.Point = (ecdsa.GX, ecdsa.GY)
+    for w in range(COMB_WINDOWS):
+        pt: ecdsa.Point = None
+        for d in range(1, COMB_DIGITS):
+            pt = ecdsa._add(pt, base)
+            at = (w * COMB_DIGITS + d) * 64
+            rows[at:at + 32] = pt[0].to_bytes(32, "little")
+            rows[at + 32:at + 64] = pt[1].to_bytes(32, "little")
+        base = ecdsa._add(pt, base)  # 256 * 2**(8*w) * G
+    return np.frombuffer(bytes(rows), dtype="<u4").reshape(COMB_WINDOWS, COMB_DIGITS, 16)
+
+
+def _comb_on(dev: torch.device) -> torch.Tensor:
+    """:func:`comb_table` on the card ``dev``, uploaded at its first use."""
+    table = _comb_on_card.get(dev)
+    if table is None:
+        table = torch.from_numpy(comb_table().view(np.int32).copy()).to(dev)
+        _comb_on_card[dev] = table
+    return table
 
 
 def _check(z: torch.Tensor, r: torch.Tensor, s: torch.Tensor, v: torch.Tensor) -> None:
@@ -69,6 +105,7 @@ def launch(z: torch.Tensor, r: torch.Tensor, s: torch.Tensor, v: torch.Tensor) -
     if not all(t.is_contiguous() for t in (z, r, s, v)):
         raise ValueError("recovery inputs must be contiguous")
     lib = _build.load("secp256k1_recover")
+    gtab = _comb_on(dev)
     batch = tuple(v.shape)
     x = torch.empty(batch + (_L,), dtype=torch.int32, device=dev)
     y = torch.empty_like(x)
@@ -79,7 +116,7 @@ def launch(z: torch.Tensor, r: torch.Tensor, s: torch.Tensor, v: torch.Tensor) -
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.secp256k1_recover(
             z.data_ptr(), z.shape[-1], r.data_ptr(), s.data_ptr(), v.data_ptr(),
-            x.data_ptr(), y.data_ptr(), addr.data_ptr(), ok.data_ptr(), n, stream,
+            gtab.data_ptr(), x.data_ptr(), y.data_ptr(), addr.data_ptr(), ok.data_ptr(), n, stream,
         )
         if rc != 0:
             raise RuntimeError(f"secp256k1_recover launch failed: cudaError {rc}")

@@ -16,7 +16,12 @@ import pytest
 import torch
 
 from go_ibft_tpu_torch import convert
-from go_ibft_tpu_torch.bench import build_recovery_lanes, build_round_workload, build_signed_round
+from go_ibft_tpu_torch.bench import (
+    build_recovery_lanes,
+    build_round_workload,
+    build_signed_round,
+    build_sparse_scalar_lanes,
+)
 from go_ibft_tpu_torch.crypto.backend import ECDSABackend
 from go_ibft_tpu_torch.ops import ecrecover, keccak_f1600
 from go_ibft_tpu_torch.ops import fields as tf
@@ -84,7 +89,7 @@ def recovery_lanes():
 
 
 @pytest.mark.parametrize("z_kind", ["zw", "z_limbs"])
-@pytest.mark.parametrize("b", [1, 33, 256])
+@pytest.mark.parametrize("b", [1, 33, 256, 1024])
 def test_recovery_kernel_matches_plain_and_oracle(cuda_device, recovery_lanes, b, z_kind):
     lanes, expect = recovery_lanes
     arr = lanes.arrays(b)
@@ -103,6 +108,22 @@ def test_recovery_kernel_matches_plain_and_oracle(cuda_device, recovery_lanes, b
         assert bool(oks[i]) == (expect[lane] is not None), lanes.labels[lane]
         if expect[lane] is not None:
             assert (xs[i], ys[i]) == expect[lane], lanes.labels[lane]
+
+
+def test_recovery_kernel_matches_oracle_on_sparse_scalars(cuda_device):
+    lanes = build_sparse_scalar_lanes(64, seed=7)
+    arr = lanes.arrays()
+    ins = [torch.from_numpy(np.ascontiguousarray(arr[k])).to(cuda_device)
+           for k in ("zw", "r", "s", "v")]
+    x, y, addr, ok = ecrecover.recover(*ins)
+    xs, ys, oks = tf.from_limbs(x), tf.from_limbs(y), ok.cpu().numpy()
+    for i, e in enumerate(lanes.expected()):
+        assert bool(oks[i]) == (e is not None)
+        if e is not None:
+            assert (xs[i], ys[i]) == e
+    px, py, paddr, pok = ecrecover.recover_plain(*(t.cpu() for t in ins))
+    assert torch.equal(ok.cpu(), pok)
+    assert torch.equal(addr.cpu()[pok], paddr[pok])
 
 
 def test_ecdsa_recover_on_card_reaches_the_kernel(cuda_device, recovery_lanes):

@@ -6,11 +6,16 @@
   against the JAX package's host oracle ``go_ibft_tpu.crypto.ecdsa.recover``
   and ``pubkey_to_address`` on the seeded lanes of ``bench/lanes.py``,
   adversarial lanes included.
-* ``csrc/secp256k1_recover.cu``: its per-lane arithmetic is plain C++
-  (``csrc/lane.cuh``), so a host compiler builds the same source; the
-  host build is held against that oracle and the plain version on the
-  same lanes, and against the oracle on seeded random lanes.  The CUDA
-  build runs only on the card (``tests/test_torch_cuda.py``).
+* ``ops/ecrecover.py::comb_table``, the kernel's fixed-base comb, is held
+  against ``crypto.ecdsa.scalar_mul`` on a seeded sample of its entries and
+  on every corner.
+* ``csrc/secp256k1_recover.cu``: its per-lane arithmetic has a portable
+  C++ twin of every PTX chain (``csrc/lane.cuh``), so a host compiler
+  builds the same source and runs the same algorithm; the host build is
+  held against that oracle and the plain version on the same lanes, against
+  the oracle on seeded random lanes (small and sparse scalars among them),
+  and its safegcd inversion against ``pow(x, -1, m)``.  The CUDA build runs
+  only on the card (``tests/test_torch_cuda.py``).
 * ``_build.py``: the build key covers the shared headers, and every C entry
   point it binds exists in its source.
 
@@ -27,7 +32,7 @@ import torch
 
 from go_ibft_tpu.crypto import ecdsa as jax_ecdsa
 from go_ibft_tpu_torch import _build
-from go_ibft_tpu_torch.bench import RecoveryLanes, build_recovery_lanes
+from go_ibft_tpu_torch.bench import RecoveryLanes, build_recovery_lanes, build_sparse_scalar_lanes
 from go_ibft_tpu_torch.crypto import ecdsa
 from go_ibft_tpu_torch.ops import ecrecover
 from go_ibft_tpu_torch.ops import fields as tf
@@ -128,8 +133,9 @@ def host_kernel(tmp_path_factory):
         check=True, capture_output=True, timeout=300,
     )
     fn = ctypes.CDLL(str(lib)).secp256k1_recover_host
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_longlong]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_longlong]
     fn.restype = ctypes.c_int
+    gtab = np.ascontiguousarray(ecrecover.comb_table())
 
     def run(arr, z_kind):
         z = np.ascontiguousarray(arr[z_kind])
@@ -138,10 +144,54 @@ def host_kernel(tmp_path_factory):
         addr, ok = np.zeros((n, 5), np.int32), np.zeros(n, np.uint8)
         r, s, v = (np.ascontiguousarray(arr[k]) for k in ("r", "s", "v"))
         fn(z.ctypes.data, z.shape[1], r.ctypes.data, s.ctypes.data, v.ctypes.data,
-           x.ctypes.data, y.ctypes.data, addr.ctypes.data, ok.ctypes.data, n)
+           gtab.ctypes.data, x.ctypes.data, y.ctypes.data, addr.ctypes.data, ok.ctypes.data, n)
         return x, y, addr, ok.astype(bool)
 
+    run.lib = lib
     return run
+
+
+@pytest.fixture(scope="module")
+def host_modinv(host_kernel):
+    fn = ctypes.CDLL(str(host_kernel.lib)).secp256k1_modinv_host
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
+    fn.restype = ctypes.c_int
+
+    def run(values, modulus_is_n):
+        x = np.frombuffer(b"".join(v.to_bytes(32, "little") for v in values), dtype="<u4").copy()
+        out = np.zeros_like(x)
+        fn(x.ctypes.data, int(modulus_is_n), out.ctypes.data, len(values))
+        words = out.reshape(-1, 8)
+        return [int.from_bytes(row.tobytes(), "little") for row in words]
+
+    return run
+
+
+def test_comb_table_matches_scalar_mul():
+    table = ecrecover.comb_table()
+    assert table.shape == (32, 256, 16) and table.dtype == np.uint32
+    assert not table[:, 0].any()  # rows d = 0 are unused
+    rng = np.random.default_rng(7)
+    corners = [(w, d) for w in (0, 31) for d in (1, 255)] + [(0, 2), (31, 128), (15, 1)]
+    sample = [(int(w), int(d)) for w, d in zip(rng.integers(0, 32, 24), rng.integers(1, 256, 24))]
+    for w, d in corners + sample:
+        x, y = ecdsa.scalar_mul(d << (8 * w), (ecdsa.GX, ecdsa.GY))
+        words = np.frombuffer(x.to_bytes(32, "little") + y.to_bytes(32, "little"), dtype="<u4")
+        assert np.array_equal(table[w, d], words), (w, d)
+
+
+@pytest.mark.parametrize("modulus_is_n", [True, False])
+def test_kernel_modinv_host_build_matches_pow(host_modinv, modulus_is_n):
+    """The kernel's safegcd inverse: 0 maps to 0; edges of the divsteps
+    (1, M - 1, M - 2, powers of two, long runs of ones and zeros) and
+    seeded random values."""
+    m = ecdsa.N if modulus_is_n else ecdsa.P
+    rng = np.random.default_rng(11 + modulus_is_n)
+    values = [0, 1, 2, 3, m - 1, m - 2, (m + 1) // 2, 1 << 200, 1 << 255, (1 << 255) - 1,
+              ((1 << 128) - 1) << 128, (1 << 128) - 1]
+    values += [int.from_bytes(rng.bytes(32), "big") % m for _ in range(64)]
+    got = host_modinv(values, modulus_is_n)
+    assert got == [pow(v, -1, m) if v else 0 for v in values]
 
 
 @pytest.mark.parametrize("z_kind", ["zw", "z_limbs"])
@@ -167,6 +217,15 @@ def test_kernel_lanes_host_build_match_oracle_on_random_lanes(host_kernel, seed)
             vals[int(rng.integers(0, 3))] = int(rng.integers(1, 1 << 16))
         r, s = vals[0] % ecdsa.N, vals[1] % ecdsa.N
         lanes.add("random", vals[2].to_bytes(32, "big"), r, s, int(rng.integers(0, 2)))
+    arr = lanes.arrays()
+    _check_against_oracle(lanes, _jax_oracle(lanes), arr, *host_kernel(arr, "zw"))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_kernel_lanes_host_build_match_oracle_on_sparse_scalars(host_kernel, seed):
+    """Valid lanes whose s and z have low Hamming weight or are small, so
+    that u1 and u2 take extreme digits (``bench/lanes.py``)."""
+    lanes = build_sparse_scalar_lanes(32, seed=100 + seed)
     arr = lanes.arrays()
     _check_against_oracle(lanes, _jax_oracle(lanes), arr, *host_kernel(arr, "zw"))
 
