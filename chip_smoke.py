@@ -10,25 +10,38 @@ Phases, in order (any failure exits non-zero and prints no result):
 3. build the signed 100- and 300-validator rounds, then hold each kernel,
    through the wrapper the main path calls, against its plain PyTorch
    version on the card, bit-exact: ``keccak_f1600`` on random states,
-   ``keccak256_sponge`` at 1-3 blocks with ragged block counts,
+   ``keccak256_digest`` in both output forms (value words through
+   ``ops.quorum.digest_words``, stream words through
+   ``ops.keccak.keccak256_blocks``) at 1, 2, 3, 8 and 32 blocks with ragged
+   block counts (0, negative and above the block count among them),
    ``secp256k1_recover`` on the seeded recovery lanes (real signatures plus
    every adversarial lane of ``bench/lanes.py``), each at the batch sizes
    the path uses and beyond, the recovery also against the host oracle;
-   then the sponge and the recovery on the two rounds' own inputs;
+   then the digest and the recovery on the two rounds' own inputs;
 4. certify the 100-validator round (seed 0) through both entry points,
    ``ops.quorum.round_certify`` and ``DeviceBatchVerifier.certify_round``:
    every mask true, both quorums reached, masks equal to the host oracle
    (``crypto.ecdsa.recover``); the kernels' launch counts are set to 0
-   before these two calls and read after them;
+   before these two calls and read after them, and each call made exactly
+   one digest launch;
 5. the 300-validator round with 30 % bad signatures: masks equal the
    expected masks, quorum reached (210 >= 201);
 6. a 100-validator round with 34 bad signatures: no quorum;
 7. time each kernel at the main path's own inputs (CUDA events) beside its
-   plain version and its bound, and the recovery at 1 to 16,384 lanes;
+   plain version and its bound, the digest also at 128 messages of 8 and of
+   32 blocks (and its time on the card per launch, profiler), and the
+   recovery at 1 to 16,384 lanes;
    time phases 4-5 with CUDA events and the host clock (median of 20 calls
    after warm-up), and profile one 100-validator call: device kernels
    (fewer than 10,000), device busy time, idle share;
-8. print the ``kernels`` line, then the result line.
+8. print the ``kernels`` line (each kernel's ``ms`` is CUDA events over
+   back-to-back launches; ``device_ms_per_launch`` its time on the card per
+   launch, from the profiler), then the result line.
+
+``--digest-only`` runs none of this: it times ``ops.quorum.digest_words``
+and the recovery kernel of whichever ``go_ibft_tpu_torch`` comes first on
+the import path, so that two checkouts are timed by the same code in one
+call (``digest_only`` below).
 
 It imports nothing of JAX or of the JAX package.  It needs one card and
 exits non-zero where ``torch.cuda.is_available()`` is false.
@@ -37,7 +50,9 @@ exits non-zero where ``torch.cuda.is_available()`` is false.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -54,8 +69,14 @@ OPS_PER_S_32BIT = 67e12
 # and 300-validator rounds: 128 and 512 messages; recovery: 256 and 1024
 # lanes) and ragged ones.
 KECCAK_BATCHES = (1, 128, 129, 256, 512, 1024, 4096)
-SPONGE_BATCHES = (1, 128, 129, 256, 512, 1024)
-SPONGE_BLOCKS = (1, 2, 3)
+DIGEST_BATCHES = (1, 33, 128, 129, 512, 1024)
+# The verifier's block buckets are 2, 8 and 32; 1 and 3 are ragged.
+DIGEST_BLOCKS = (1, 2, 3, 8, 32)
+# Digest shapes timed beyond the rounds' own (128 and 512 messages of 2
+# blocks): a payload of 8 and of 32 blocks, such as a PREPREPARE carrying a
+# round-change certificate.
+DIGEST_LONG = ((128, 8), (128, 32))
+DIGEST_TIMED = ((128, 2), (512, 2)) + DIGEST_LONG
 RECOVER_BATCHES = (1, 33, 256, 1024)
 TIMED_BATCHES = (128, 256, 1024, 4096)
 # Lane counts of the recovery sweep in phase 7: where the kernel stops being
@@ -155,11 +176,12 @@ def profile_call(fn) -> dict:
         fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels, launches, by_name = 0, 0, {}
+    kernels, launches, by_name, count_by_name = 0, 0, {}, {}
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             kernels += 1
             by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
+            count_by_name[evt.name] = count_by_name.get(evt.name, 0) + 1
         elif evt.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"):
             launches += 1
     return {
@@ -168,7 +190,17 @@ def profile_call(fn) -> dict:
         "device_busy_ms": sum(by_name.values()),
         "profiled_wall_ms": wall_ms,
         "by_name_ms": by_name,
+        "count_by_name": count_by_name,
     }
+
+
+def per_launch_ms(prof: dict, kernel: str) -> float:
+    """Mean time on the card of the profiled kernels whose name holds
+    ``kernel``, over the launches the profiler recorded."""
+    names = [name for name in prof["by_name_ms"] if kernel in name]
+    count = sum(prof["count_by_name"][name] for name in names)
+    check(count > 0, f"the profiler recorded {kernel}")
+    return sum(prof["by_name_ms"][name] for name in names) / count
 
 
 def bound(nbytes: int, ops: int) -> dict:
@@ -234,14 +266,64 @@ def main_path_inputs(rargs, quorum):
     return blocks, counts, zw, r, s, v
 
 
+def digest_only() -> int:
+    """Time ``ops.quorum.digest_words`` and the recovery kernel of the
+    ``go_ibft_tpu_torch`` first on the import path.  To compare checkouts,
+    run this file of one checkout against each in turn (A B B A):
+
+        PYTHONSAFEPATH=1 PYTHONPATH=<checkout> python3 chip_smoke.py --digest-only
+
+    ``digest_words`` at DIGEST_TIMED, seeded, every message absorbing all
+    its blocks: CUDA events over 200 back-to-back calls; the kernels of one
+    call and their time on the card (profiler, 20 calls); a SHA-256 of the
+    digests, equal across checkouts.  The recovery kernel on the lanes of
+    the 100- and 300-validator rounds: CUDA events over 20 launches, and its
+    ptxas report.  Prints the card's identity, then one JSON line."""
+    import go_ibft_tpu_torch
+    from go_ibft_tpu_torch import _build, convert
+    from go_ibft_tpu_torch.bench import build_signed_round
+    from go_ibft_tpu_torch.ops import ecrecover, quorum
+
+    print(gpu_identity(), flush=True)
+    _build.build_all()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    out = {"package": os.path.dirname(os.path.abspath(go_ibft_tpu_torch.__file__)),
+           "digest": {}, "recover": {}}
+    for b, nb in DIGEST_TIMED:
+        blocks = torch.randint(-(2**31), 2**31, (b, nb, 17, 2), dtype=torch.int32,
+                               generator=gen).to(dev)
+        counts = torch.full((b,), nb, dtype=torch.int32, device=dev)
+        words = quorum.digest_words(blocks, counts).cpu().numpy()
+        prof = profile_call(lambda: [quorum.digest_words(blocks, counts) for _ in range(20)])
+        out["digest"][f"{b}x{nb}"] = {
+            "events_ms": cuda_time_ms(lambda: quorum.digest_words(blocks, counts), 200),
+            "on_card_ms": prof["device_busy_ms"] / 20,
+            "kernels_per_call": prof["device_kernels"] / 20,
+            "sha256": hashlib.sha256(words.tobytes()).hexdigest(),
+        }
+    for n in (100, 300):
+        rargs = convert.round_args(build_signed_round(n, seed=0).pack())
+        zw, r, s, v = main_path_inputs(rargs, quorum)[2:]
+        out["recover"][v.numel()] = cuda_time_ms(lambda: ecrecover.launch(zw, r, s, v), 20)
+    out["ptxas"] = [line.strip() for line in _build.build_logs.get("secp256k1_recover", "").splitlines()
+                    if "registers" in line or "stack frame" in line]
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write every measurement to this file")
+    parser.add_argument("--digest-only", action="store_true",
+                        help="only time digest_words and the recovery kernel (see digest_only)")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
+    if args.digest_only:
+        return digest_only()
 
     import numpy as np
 
@@ -310,7 +392,19 @@ def main() -> int:
         return x, y, ok
 
     gen = torch.Generator(device="cpu").manual_seed(0)
-    err = {"keccak_f1600": 0, "keccak256_sponge": 0, "secp256k1_recover": 0}
+    err = {"keccak_f1600": 0, "keccak256_digest": 0, "secp256k1_recover": 0}
+
+    def hold_digest(blocks, counts, what):
+        """The digest kernel in both forms against its plain versions."""
+        value = quorum.digest_words(blocks, counts)
+        stream = tk.keccak256_blocks(blocks, counts)
+        torch.cuda.synchronize()
+        for got, ref, form in ((value, keccak_f1600.digest_words_plain(blocks, counts), "value"),
+                               (stream, keccak_f1600.keccak256_sponge_plain(blocks, counts),
+                                "stream")):
+            err["keccak256_digest"] = max(err["keccak256_digest"], exact(
+                got, ref, f"keccak256_digest kernel == plain, {form} words, {what}"))
+
     for b in KECCAK_BATCHES:
         st = torch.randint(-(2**31), 2**31, (b, 25, 2), dtype=torch.int32, generator=gen).to(dev)
         out = tk.keccak_f(st)
@@ -318,18 +412,17 @@ def main() -> int:
         err["keccak_f1600"] = max(err["keccak_f1600"], exact(
             out, keccak_f1600.keccak_f_plain(st), f"keccak_f1600 kernel == plain at B={b}"))
     log(f"[3] keccak_f1600 bit-exact against plain at B={KECCAK_BATCHES}")
-    for nb in SPONGE_BLOCKS:
-        for b in SPONGE_BATCHES:
+    for nb in DIGEST_BLOCKS:
+        for b in DIGEST_BATCHES:
             blocks = torch.randint(-(2**31), 2**31, (b, nb, 17, 2), dtype=torch.int32,
                                    generator=gen).to(dev)
-            counts = torch.randint(1, nb + 1, (b,), dtype=torch.int32, generator=gen).to(dev)
-            out = tk.keccak256_blocks(blocks, counts)
-            torch.cuda.synchronize()
-            err["keccak256_sponge"] = max(err["keccak256_sponge"], exact(
-                out, keccak_f1600.keccak256_sponge_plain(blocks, counts),
-                f"keccak256_sponge kernel == plain at nb={nb}, B={b}"))
-    log(f"[3] keccak256_sponge bit-exact against plain at nb={SPONGE_BLOCKS}, "
-        f"B={SPONGE_BATCHES}, ragged block counts")
+            # Ragged: -1 .. nb + 1, with 0 and nb + 1 always present for B > 2.
+            counts = torch.randint(-1, nb + 2, (b,), dtype=torch.int32, generator=gen)
+            if b > 2:
+                counts[:2] = torch.tensor([0, nb + 1], dtype=torch.int32)
+            hold_digest(blocks, counts.to(dev), f"nb={nb}, B={b}")
+    log(f"[3] keccak256_digest bit-exact against plain in both forms at nb={DIGEST_BLOCKS}, "
+        f"B={DIGEST_BATCHES}, ragged block counts")
     lanes = build_recovery_lanes(8, seed=0)
     expect = lanes.expected()
     for b in RECOVER_BATCHES:
@@ -349,31 +442,39 @@ def main() -> int:
         f"B={RECOVER_BATCHES} ({len(lanes)} lanes: {', '.join(sorted(set(lanes.labels)))})")
     for label, rargs in (("100v", args100), ("300v_30bad", args300)):
         blocks, counts, zw, r, s, v = main_path_inputs(rargs, quorum)
-        out = tk.keccak256_blocks(blocks, counts)
-        torch.cuda.synchronize()
-        err["keccak256_sponge"] = max(err["keccak256_sponge"], exact(
-            out, keccak_f1600.keccak256_sponge_plain(blocks, counts),
-            f"keccak256_sponge kernel == plain on the {label} round's payloads"))
+        hold_digest(blocks, counts, f"on the {label} round's payloads")
         _, _, ok = hold_recovery((zw, r, s, v),
                                  f"secp256k1_recover kernel == plain on the {label} round's lanes")
-        log(f"[3] {label} round: sponge at {tuple(blocks.shape)} and recovery at "
+        log(f"[3] {label} round: digest at {tuple(blocks.shape)} and recovery at "
             f"{v.numel()} lanes ({int(ok.sum())} recover) bit-exact against plain")
     report["max_abs_err"] = err
 
     # -- 4. the 100-validator round through both entry points ----------
+    # Each kernel's wrappers: the digest kernel has two, one per output form.
     counters = {
-        "keccak_f1600": tk.keccak_f,
-        "keccak256_sponge": tk.keccak256_blocks,
-        "secp256k1_recover": ecrecover.recover,
+        "keccak_f1600": (tk.keccak_f,),
+        "keccak256_digest": (quorum.digest_words, tk.keccak256_blocks),
+        "secp256k1_recover": (ecrecover.recover,),
     }
-    for fn in counters.values():
-        fn.launches = 0
+
+    def reset_counts():
+        for fns in counters.values():
+            for fn in fns:
+                fn.launches = 0
+
+    def read_counts():
+        return {name: sum(fn.launches for fn in fns) for name, fns in counters.items()}
+
+    reset_counts()
     out = quorum.round_certify(*args100)
+    check(quorum.digest_words.launches == 1, "round_certify: exactly one digest launch")
     pm, pr, sm, sr = verifier100.certify_round(
         rnd100.prepares, rnd100.proposal_hash, rnd100.seals, rnd100.height
     )
-    launches = {name: fn.launches for name, fn in counters.items()}
-    check(launches["keccak256_sponge"] > 0, "keccak256_sponge launched on the main path")
+    check(quorum.digest_words.launches == 2, "certify_round: exactly one digest launch")
+    launches = read_counts()
+    check(launches["keccak256_digest"] == 2 and tk.keccak256_blocks.launches == 0,
+          "keccak256_digest launched once per entry point, in its value-word form")
     check(launches["secp256k1_recover"] > 0, "secp256k1_recover launched on the main path")
     n = rnd100.n_validators
     rc = [x.cpu().numpy() for x in out]
@@ -388,14 +489,13 @@ def main() -> int:
     report["launches_main_path"] = launches
 
     # -- 5. 300 validators, 30 % bad -----------------------------------
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts()
     out = [x.cpu().numpy() for x in quorum.round_certify(*args300)]
     pm, pr, sm, sr = verifier300.certify_round(
         rnd300.prepares, rnd300.proposal_hash, rnd300.seals, rnd300.height
     )
-    check(tk.keccak256_blocks.launches > 0 and ecrecover.recover.launches > 0,
-          "300 validators: the sponge and recovery kernels launched")
+    check(quorum.digest_words.launches == 2 and ecrecover.recover.launches > 0,
+          "300 validators: the digest (once per call) and recovery kernels launched")
     n = 300
     for name, got in (("round_certify", (out[0][:n], out[2][:n])), ("certify_round", (pm, sm))):
         check(list(got[0]) == list(rnd300.expected_prepare_mask), f"{name}: prepare mask == expected")
@@ -405,15 +505,14 @@ def main() -> int:
     log("[5] 300 validators, 30% bad: masks == expected, 210 >= 201 reached")
 
     # -- 6. 34 bad of 100: no quorum -----------------------------------
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts()
     rnd34 = build_signed_round(100, corrupt_frac=0.34, seed=0)
     out = [x.cpu().numpy() for x in quorum.round_certify(*convert.round_args(rnd34.pack()))]
     pm, pr, sm, sr = verifier100.certify_round(
         rnd34.prepares, rnd34.proposal_hash, rnd34.seals, rnd34.height
     )
-    check(tk.keccak256_blocks.launches > 0 and ecrecover.recover.launches > 0,
-          "34 bad: the sponge and recovery kernels launched")
+    check(quorum.digest_words.launches == 2 and ecrecover.recover.launches > 0,
+          "34 bad: the digest (once per call) and recovery kernels launched")
     check(list(pm) == list(rnd34.expected_prepare_mask) and int(pm.sum()) == 66, "34-bad prepare mask")
     check(list(sm) == list(rnd34.expected_seal_mask), "34-bad seal mask")
     check(not (pr or sr or bool(out[1]) or bool(out[3])), "66 < 67: neither quorum reached")
@@ -423,7 +522,27 @@ def main() -> int:
     # Each kernel at the main path's own inputs: the payload digests of the
     # 100- and 300-validator rounds (128 and 512 messages of 2 blocks) and
     # their recovery lanes (PREPARE + COMMIT: 256 and 1024).
-    timing = {"keccak_f1600": {}, "keccak256_sponge": {}, "secp256k1_recover": {}}
+    timing = {"keccak_f1600": {}, "keccak256_digest": {}, "secp256k1_recover": {}}
+
+    def time_digest(blocks, counts):
+        """The digest kernel (value words, as the main path calls it): CUDA
+        events over back-to-back launches, and its time on the card per
+        launch from the profiler; the plain version; the bound, counting
+        the blocks these counts absorb and Keccak-f's op count per block."""
+        b, nb = blocks.shape[0], blocks.shape[1]
+        absorbed = int(counts.clamp(0, nb).sum())
+        prof = profile_call(lambda: [keccak_f1600.launch_digest(blocks, counts, True)
+                                     for _ in range(20)])
+        return {
+            "batch": b, "blocks": nb,
+            "ms": cuda_time_ms(lambda: keccak_f1600.launch_digest(blocks, counts, True), 200),
+            "device_ms_per_launch": per_launch_ms(prof, "keccak256_digest"),
+            "plain_ms": cuda_time_ms(lambda: keccak_f1600.digest_words_plain(blocks, counts),
+                                     5 if nb <= 8 else 2),
+            **bound(absorbed * 136 + b * 4 + b * 32,  # blocks absorbed, counts, digests
+                    absorbed * (KECCAK_OPS_PER_STATE + 17 * 2)),
+        }
+
     for b in TIMED_BATCHES:
         st = torch.randint(-(2**31), 2**31, (b, 25, 2), dtype=torch.int32, generator=gen).to(dev)
         timing["keccak_f1600"][b] = {
@@ -433,25 +552,24 @@ def main() -> int:
         }
     for label, rargs in (("100v", args100), ("300v_30bad", args300)):
         blocks, counts, zw, r, s, v = main_path_inputs(rargs, quorum)
-        b, nb = blocks.shape[0], blocks.shape[1]
-        absorbed = int(counts.clamp(0, nb).sum())
-        timing["keccak256_sponge"][label] = {
-            "batch": b, "blocks": nb,
-            "ms": cuda_time_ms(lambda: keccak_f1600.launch_sponge(blocks, counts), 200),
-            "plain_ms": cuda_time_ms(lambda: keccak_f1600.keccak256_sponge_plain(blocks, counts), 5),
-            **bound(absorbed * 136 + b * 4 + b * 32,  # blocks absorbed, counts, digests
-                    absorbed * (KECCAK_OPS_PER_STATE + 17 * 2)),
-        }
+        timing["keccak256_digest"][label] = time_digest(blocks, counts)
         ints = [tf.from_limbs(t) for t in (r, s)]
         zs = [int.from_bytes(np.ascontiguousarray(row).astype("<u4").tobytes(), "little")
               for row in zw.cpu().numpy()]
         ops = recover_ops(zs, ints[0], ints[1], [int(t) for t in v.cpu()], ecdsa.N, glv_halves)
+        prof = profile_call(lambda: [ecrecover.launch(zw, r, s, v) for _ in range(5)])
         timing["secp256k1_recover"][label] = {
             "batch": v.numel(),
             "ms": cuda_time_ms(lambda: ecrecover.launch(zw, r, s, v), 20),
+            "device_ms_per_launch": per_launch_ms(prof, "secp256k1_recover"),
             "plain_ms": cuda_time_ms(lambda: ecrecover.recover_plain(zw, r, s, v), 1),
             **bound(v.numel() * RECOVER_BYTES_PER_LANE, ops),
         }
+    for b, nb in DIGEST_LONG:
+        blocks = torch.randint(-(2**31), 2**31, (b, nb, 17, 2), dtype=torch.int32,
+                               generator=gen).to(dev)
+        counts = torch.full((b,), nb, dtype=torch.int32, device=dev)
+        timing["keccak256_digest"][f"{b}x{nb}"] = time_digest(blocks, counts)
     # The recovery at growing lane counts: the 300-validator round's 1,024
     # lanes repeated.
     zw, r, s, v = main_path_inputs(args300, quorum)[2:]
@@ -465,8 +583,10 @@ def main() -> int:
     report["recover_sweep_ms"] = sweep
     for name, rows in timing.items():
         for key, t in rows.items():
-            log(f"[7] {name} at {key}: kernel {t['ms']:.5f} ms, plain {t['plain_ms']:.3f} ms, "
-                f"bound {t['bound_ms']:.3g} ms ({t['bound_by']})")
+            on_card = (f", {t['device_ms_per_launch'] * 1e3:.2f} us on the card"
+                       if "device_ms_per_launch" in t else "")
+            log(f"[7] {name} at {key}: kernel {t['ms']:.5f} ms{on_card}, plain "
+                f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.3g} ms ({t['bound_by']})")
     report["kernel_timing"] = timing
 
     medians = {}
@@ -494,6 +614,7 @@ def main() -> int:
             rnd.prepares, rnd.proposal_hash, rnd.seals, rnd.height))
         busy = prof["device_busy_ms"]
         top = sorted(prof.pop("by_name_ms").items(), key=lambda kv: -kv[1])[:5]
+        prof.pop("count_by_name")
         prof["idle_share_vs_median"] = 1 - busy / medians[label]["certify_round_host_ms"]
         prof["top_kernels_ms"] = top
         medians[label]["profile"] = prof
@@ -506,23 +627,26 @@ def main() -> int:
           "fewer than 10,000 kernels per 100-validator certify_round")
     st = torch.randint(-(2**31), 2**31, (256, 25, 2), dtype=torch.int32, generator=gen).to(dev)
     kprof = profile_call(lambda: [keccak_f1600.launch(st) for _ in range(50)])
-    kern_dev_ms = sum(ms for name, ms in kprof["by_name_ms"].items() if "keccak" in name) / 50
+    kern_dev_ms = per_launch_ms(kprof, "keccak_f1600")
     timing["keccak_f1600"][256]["device_ms_per_launch"] = kern_dev_ms
     log(f"[7] keccak_f1600 at B=256: {kern_dev_ms * 1e3:.2f} us on the card per launch (profiler)")
     report["medians"] = medians
 
     # -- 8. the kernels line and the result ----------------------------
     main = {"keccak_f1600": timing["keccak_f1600"][256],  # PR 1's main-path size
-            "keccak256_sponge": timing["keccak256_sponge"]["100v"],
+            "keccak256_digest": timing["keccak256_digest"]["100v"],
             "secp256k1_recover": timing["secp256k1_recover"]["100v"]}
     where = {
         "keccak_f1600": ("go_ibft_tpu_torch/csrc/keccak_f1600.cu",
                          "go_ibft_tpu/ops/pallas_keccak.py:131"),
-        "keccak256_sponge": ("go_ibft_tpu_torch/csrc/keccak_f1600.cu",
-                             "go_ibft_tpu/ops/keccak.py:179"),
+        "keccak256_digest": ("go_ibft_tpu_torch/csrc/keccak_f1600.cu",
+                             "go_ibft_tpu/ops/quorum.py:65"),
         "secp256k1_recover": ("go_ibft_tpu_torch/csrc/secp256k1_recover.cu",
                               "go_ibft_tpu/ops/secp256k1.py:665"),
     }
+    # "ms" is CUDA events over back-to-back launches, which the wrapper's
+    # Python bounds for the short Keccak kernels; "device_ms_per_launch" is
+    # the kernel's own time on the card (profiler).
     kernels = [{
         "name": name,
         "route": "cuda",
@@ -531,6 +655,7 @@ def main() -> int:
         "launches": launches[name],
         "max_abs_err": err[name],
         "ms": main[name]["ms"],
+        "device_ms_per_launch": main[name]["device_ms_per_launch"],
         "plain_ms": main[name]["plain_ms"],
         "bound_ms": main[name]["bound_ms"],
         "bound_by": main[name]["bound_by"],

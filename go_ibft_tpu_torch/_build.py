@@ -38,7 +38,9 @@ _P = ctypes.c_void_p
 SIGNATURES = {
     "keccak_f1600": {
         "keccak_f1600": ([_P, _P, ctypes.c_longlong, _P], ctypes.c_int),
-        "keccak256_sponge": ([_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P], ctypes.c_int),
+        "keccak256_digest": (
+            [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P], ctypes.c_int
+        ),
     },
     "secp256k1_recover": {
         "secp256k1_recover": (

@@ -9,10 +9,12 @@ bit may be set is masked afterwards.
 
 Two consumers, as in the JAX package: **payload digests** (``payload_no_sig``
 bytes packed on the host into padded rate blocks and absorbed block by
-block, :func:`keccak256_blocks`: one launch of the ``keccak256_sponge``
-kernel on a CUDA tensor) and **address derivation** (recovered public keys
-hashed to 20-byte addresses; on a CUDA tensor inside the recovery kernel,
-``csrc/secp256k1_recover.cu``, else :func:`pubkey_to_address_words`).
+block, :func:`keccak256_blocks` here and
+:func:`go_ibft_tpu_torch.ops.quorum.digest_words`: one launch of the
+``keccak256_digest`` kernel on a CUDA tensor) and **address derivation**
+(recovered public keys hashed to 20-byte addresses; on a CUDA tensor inside
+the recovery kernel, ``csrc/secp256k1_recover.cu``, else
+:func:`pubkey_to_address_words`).
 :func:`keccak_f` launches the bare permutation ``keccak_f1600`` on a CUDA
 tensor.
 
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from . import keccak_f1600
+from .keccak_f1600 import bswap32
 from .fields import LIMB_BITS, LIMB_MASK
 
 __all__ = [
@@ -73,14 +76,15 @@ def keccak256_blocks(blocks: torch.Tensor, num_blocks: torch.Tensor) -> torch.Te
 
     ``blocks`` is ``(..., B, 17, 2)`` int32 (17 lanes per 136-byte rate
     block, padded by :func:`pack_messages`); ``num_blocks`` is ``(...,)``
-    int32 in ``[1, B]``.  A CUDA tensor launches the ``keccak256_sponge``
-    kernel once (counted in ``keccak256_blocks.launches``): each message
-    absorbs its own blocks in registers and stops after its count.  A CPU
-    tensor takes the plain version, which runs all ``B`` blocks and drops
-    those past the count by a select, as in the JAX package.
+    int32 in ``[1, B]``.  A CUDA tensor launches the ``keccak256_digest``
+    kernel once, in its stream-word form (counted in
+    ``keccak256_blocks.launches``): each message absorbs its own blocks in
+    registers and stops after its count.  A CPU tensor takes the plain
+    version, which runs all ``B`` blocks and drops those past the count by a
+    select, as in the JAX package.
     """
     if blocks.device.type == "cuda":
-        out = keccak_f1600.launch_sponge(blocks, num_blocks)
+        out = keccak_f1600.launch_digest(blocks, num_blocks, value_words=False)
         if num_blocks.numel():  # an empty batch launches nothing
             keccak256_blocks.launches += 1
         return out
@@ -95,11 +99,6 @@ keccak256_blocks.launches = 0
 def _srl(w: torch.Tensor, n: int) -> torch.Tensor:
     """Logical right shift of int32 bit patterns."""
     return (w >> n) & ((1 << (32 - n)) - 1) if n else w
-
-
-def bswap32(w: torch.Tensor) -> torch.Tensor:
-    """Byte-swap each 32-bit word (big-endian <-> little-endian)."""
-    return _srl(w, 24) | ((w >> 8) & 0xFF00) | ((w << 8) & 0xFF0000) | (w << 24)
 
 
 def limbs_to_words_le(limbs: torch.Tensor, nwords: int = 8) -> torch.Tensor:

@@ -1,21 +1,26 @@
 """Keccak on the card: the CUDA kernels' launchers and their plain versions.
 
-Two kernels of ``csrc/keccak_f1600.cu``, both built on the permutation of
-``csrc/keccak_f1600.cuh``:
+Two kernels of ``csrc/keccak_f1600.cu``:
 
 * ``keccak_f1600``, the port of ``go_ibft_tpu/ops/pallas_keccak.py``
   (kernel body ``_keccak_f_kernel``, launched by ``_keccak_f_rows``'
-  ``pl.pallas_call``): :func:`launch` runs it, :func:`keccak_f_plain` is its
-  plain PyTorch version;
-* ``keccak256_sponge``, the port of the absorb loop
-  ``go_ibft_tpu/ops/keccak.py::keccak256_blocks``: :func:`launch_sponge`
-  runs it, :func:`keccak256_sponge_plain` is its plain version.
+  ``pl.pallas_call``), on the permutation of ``csrc/keccak_f1600.cuh``:
+  :func:`launch` runs it, :func:`keccak_f_plain` is its plain PyTorch
+  version;
+* ``keccak256_digest``, the port of the payload digests
+  ``go_ibft_tpu/ops/quorum.py::digest_words`` (the absorb loop
+  ``go_ibft_tpu/ops/keccak.py::keccak256_blocks`` and the byte-order
+  epilogue), each message's state split over five threads:
+  :func:`launch_digest` runs it, returning either stream words (the plain
+  version is :func:`keccak256_sponge_plain`) or value words (plain:
+  :func:`digest_words_plain`).
 
 The launchers take CUDA tensors only and raise on any fault; the plain
-versions run on any device.  :func:`go_ibft_tpu_torch.ops.keccak.keccak_f`
-and :func:`~go_ibft_tpu_torch.ops.keccak.keccak256_blocks` are the wrappers
-the port calls: the kernel for a CUDA tensor, the plain version for a CPU
-tensor, and a count of launches.
+versions run on any device.  :func:`go_ibft_tpu_torch.ops.keccak.keccak_f`,
+:func:`~go_ibft_tpu_torch.ops.keccak.keccak256_blocks` and
+:func:`go_ibft_tpu_torch.ops.quorum.digest_words` are the wrappers the port
+calls: the kernel for a CUDA tensor, the plain version for a CPU tensor,
+and a count of launches.
 
 A state is a contiguous ``(..., 25, 2)`` int32 tensor of uint32 halves (low
 half first) — byte for byte the little-endian ``(..., 25)`` uint64 lanes.
@@ -27,7 +32,16 @@ import torch
 
 from .. import _build
 
-__all__ = ["RC", "ROT", "launch", "launch_sponge", "keccak_f_plain", "keccak256_sponge_plain"]
+__all__ = [
+    "RC",
+    "ROT",
+    "launch",
+    "launch_digest",
+    "keccak_f_plain",
+    "keccak256_sponge_plain",
+    "digest_words_plain",
+    "bswap32",
+]
 
 RC = [
     0x0000000000000001, 0x0000000000008082, 0x800000000000808A,
@@ -78,10 +92,10 @@ def launch(state: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _check_sponge(blocks: torch.Tensor, num_blocks: torch.Tensor) -> None:
+def _check_blocks(blocks: torch.Tensor, num_blocks: torch.Tensor) -> None:
     if blocks.dtype != torch.int32 or num_blocks.dtype != torch.int32:
         raise TypeError(
-            f"sponge inputs must be int32, got {blocks.dtype} and {num_blocks.dtype}"
+            f"digest inputs must be int32, got {blocks.dtype} and {num_blocks.dtype}"
         )
     if blocks.dim() < 3 or tuple(blocks.shape[-2:]) != (17, 2):
         raise ValueError(f"rate blocks must be (..., nb, 17, 2), got {tuple(blocks.shape)}")
@@ -91,34 +105,39 @@ def _check_sponge(blocks: torch.Tensor, num_blocks: torch.Tensor) -> None:
         )
 
 
-def launch_sponge(blocks: torch.Tensor, num_blocks: torch.Tensor) -> torch.Tensor:
-    """Run the ``keccak256_sponge`` kernel; returns ``(..., 8)`` stream words.
+def launch_digest(
+    blocks: torch.Tensor, num_blocks: torch.Tensor, value_words: bool
+) -> torch.Tensor:
+    """Run the ``keccak256_digest`` kernel; returns ``(..., 8)`` int32 words.
 
     ``blocks`` is a contiguous ``(..., nb, 17, 2)`` int32 CUDA tensor of
     padded rate blocks, ``num_blocks`` the ``(...)`` int32 block counts on the
     same card; a message absorbs its first ``clamp(count, 0, nb)`` blocks.
-    One launch on PyTorch's current stream, no synchronisation; raises on
-    any fault.
+    The digest comes back as little-endian value words (``digest_words``)
+    if ``value_words``, else as stream words (``keccak256_blocks``).  One
+    launch on PyTorch's current stream, no synchronisation; raises on any
+    fault.
     """
-    _check_sponge(blocks, num_blocks)
+    _check_blocks(blocks, num_blocks)
     if blocks.device.type != "cuda" or num_blocks.device != blocks.device:
         raise ValueError(
-            f"the sponge kernel takes CUDA tensors on one card, got {blocks.device} "
+            f"the digest kernel takes CUDA tensors on one card, got {blocks.device} "
             f"and {num_blocks.device}"
         )
     if not (blocks.is_contiguous() and num_blocks.is_contiguous()):
-        raise ValueError("sponge inputs must be contiguous")
+        raise ValueError("digest inputs must be contiguous")
     lib = _build.load("keccak_f1600")
     batch = tuple(blocks.shape[:-3])
     out = torch.empty(batch + (8,), dtype=torch.int32, device=blocks.device)
     n = num_blocks.numel()
     if n:
         stream = torch.cuda.current_stream(blocks.device).cuda_stream
-        rc = lib.keccak256_sponge(
-            blocks.data_ptr(), num_blocks.data_ptr(), out.data_ptr(), n, blocks.shape[-3], stream
+        rc = lib.keccak256_digest(
+            blocks.data_ptr(), num_blocks.data_ptr(), out.data_ptr(), n, blocks.shape[-3],
+            int(value_words), stream,
         )
         if rc != 0:
-            raise RuntimeError(f"keccak256_sponge launch failed: cudaError {rc}")
+            raise RuntimeError(f"keccak256_digest launch failed: cudaError {rc}")
     return out
 
 
@@ -171,7 +190,7 @@ def keccak256_sponge_plain(blocks: torch.Tensor, num_blocks: torch.Tensor) -> to
     """The sponge in PyTorch ops: every message runs all ``nb`` blocks
     through :func:`keccak_f_plain`; blocks past its count are dropped by a
     select, as in the JAX package.  Returns ``(..., 8)`` stream words."""
-    _check_sponge(blocks, num_blocks)
+    _check_blocks(blocks, num_blocks)
     bmax = blocks.shape[-3]
     batch = blocks.shape[:-3]
     state = torch.zeros(batch + (25, 2), dtype=torch.int32, device=blocks.device)
@@ -182,3 +201,16 @@ def keccak256_sponge_plain(blocks: torch.Tensor, num_blocks: torch.Tensor) -> to
         state = torch.where(live, nxt, state)
     # Digest = first 4 lanes, little-endian => stream words interleave lo/hi.
     return state[..., :4, :].reshape(batch + (8,))
+
+
+def bswap32(w: torch.Tensor) -> torch.Tensor:
+    """Byte-swap each 32-bit word (big-endian <-> little-endian) of int32
+    bit patterns; ``>>`` is arithmetic, so the bits it brings in are masked."""
+    return ((w >> 24) & 0xFF) | ((w >> 8) & 0xFF00) | ((w << 8) & 0xFF0000) | (w << 24)
+
+
+def digest_words_plain(blocks: torch.Tensor, num_blocks: torch.Tensor) -> torch.Tensor:
+    """``digest_words`` in PyTorch ops: :func:`keccak256_sponge_plain`, then
+    the stream words reversed and each byte-swapped, which reads the digest
+    as a big-endian integer in little-endian ``(..., 8)`` value words."""
+    return bswap32(keccak256_sponge_plain(blocks, num_blocks).flip(-1))

@@ -21,8 +21,7 @@ from typing import Tuple
 
 import torch
 
-from . import ecrecover
-from . import keccak as dk
+from . import ecrecover, keccak_f1600
 
 __all__ = [
     "digest_words",
@@ -55,10 +54,25 @@ def _recover_address(zw, r, s, v):
 
 
 def digest_words(blocks: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
-    """Batched payload digests as little-endian value words ``(B, 8)``."""
-    digest = dk.keccak256_blocks(blocks, nblocks)  # (B, 8) stream words
-    # digest stream words are big-endian value bytes -> little-endian words
-    return dk.bswap32(digest.flip(-1))
+    """Batched payload digests as little-endian value words ``(B, 8)``.
+
+    A CUDA tensor makes one launch of the ``keccak256_digest`` kernel, which
+    writes the value words itself (counted in ``digest_words.launches``); a
+    CPU tensor takes the plain version, the sponge then the stream words
+    reversed and byte-swapped, as in the JAX package.  No fallback between
+    the two: a failed build or launch raises.
+    """
+    if blocks.device.type == "cuda":
+        out = keccak_f1600.launch_digest(blocks, nblocks, value_words=True)
+        if nblocks.numel():  # an empty batch launches nothing
+            digest_words.launches += 1
+        return out
+    if blocks.device.type == "cpu":
+        return keccak_f1600.digest_words_plain(blocks, nblocks)
+    raise ValueError(f"digest_words runs on cuda or cpu, not {blocks.device}")
+
+
+digest_words.launches = 0
 
 
 def sig_checks_zw(zw, r, s, v, claimed_w, live):

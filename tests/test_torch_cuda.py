@@ -67,19 +67,53 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device):
     assert empty.shape == (0, 25, 2)
 
 
-@pytest.mark.parametrize("nb", [1, 2, 3])
-@pytest.mark.parametrize("b", [1, 129, 256, 1024])
-def test_sponge_kernel_matches_plain(cuda_device, b, nb):
+def _digest_case(b, nb, device):
+    """Seeded rate blocks and ragged counts (0, negative and above nb
+    among them) on the card."""
     rng = np.random.default_rng(100 * nb + b)
     blocks = rng.integers(0, 2**32, size=(b, nb, 17, 2), dtype=np.uint32).view(np.int32)
-    counts = rng.integers(1, nb + 1, size=(b,), dtype=np.int32)  # ragged
-    blocks, counts = torch.from_numpy(blocks).to(cuda_device), torch.from_numpy(counts).to(cuda_device)
+    counts = rng.integers(-1, nb + 2, size=(b,), dtype=np.int32)
+    return torch.from_numpy(blocks).to(device), torch.from_numpy(counts).to(device)
+
+
+@pytest.mark.parametrize("nb", [1, 2, 3, 8, 32])
+@pytest.mark.parametrize("b", [1, 129, 256, 1024])
+def test_sponge_kernel_matches_plain(cuda_device, b, nb):
+    """The digest kernel's stream-word form, through ``keccak256_blocks``."""
+    blocks, counts = _digest_case(b, nb, cuda_device)
     before = tk.keccak256_blocks.launches
     out = tk.keccak256_blocks(blocks, counts)
     torch.cuda.synchronize()
     assert tk.keccak256_blocks.launches == before + 1
     assert torch.equal(out, keccak_f1600.keccak256_sponge_plain(blocks, counts))
     assert torch.equal(out.cpu(), tk.keccak256_blocks(blocks.cpu(), counts.cpu()))
+
+
+@pytest.mark.parametrize("nb", [1, 2, 3, 8, 32])
+@pytest.mark.parametrize("b", [1, 33, 128, 1024])
+def test_digest_kernel_value_words_match_plain(cuda_device, b, nb):
+    """The digest kernel's value-word form: ``digest_words`` makes exactly
+    one launch and no other kernel touches the words."""
+    blocks, counts = _digest_case(b, nb, cuda_device)
+    before = tq.digest_words.launches
+    out = tq.digest_words(blocks, counts)
+    torch.cuda.synchronize()
+    assert tq.digest_words.launches == before + 1
+    assert torch.equal(out, keccak_f1600.digest_words_plain(blocks, counts))
+    assert torch.equal(out.cpu(), tq.digest_words(blocks.cpu(), counts.cpu()))
+
+
+def test_digest_words_is_one_kernel_on_the_card(cuda_device):
+    from torch.profiler import ProfilerActivity, profile
+
+    blocks, counts = _digest_case(128, 2, cuda_device)
+    tq.digest_words(blocks, counts)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tq.digest_words(blocks, counts)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "keccak256_digest" in kernels[0], kernels
 
 
 @pytest.fixture(scope="module")
@@ -155,14 +189,18 @@ def test_launchers_refuse_cpu_and_malformed_tensors(cuda_device, recovery_lanes)
         ecrecover.launch(z, r.t().contiguous().t(), s, v)  # not contiguous
     blocks = torch.zeros((4, 2, 17, 2), dtype=torch.int32, device=cuda_device)
     counts = torch.ones(4, dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError):
-        keccak_f1600.launch_sponge(blocks.cpu(), counts.cpu())
-    with pytest.raises(ValueError):
-        keccak_f1600.launch_sponge(blocks, counts[:3])
-    with pytest.raises(TypeError):
-        keccak_f1600.launch_sponge(blocks, counts.to(torch.int64))
-    with pytest.raises(ValueError):
-        keccak_f1600.launch_sponge(blocks.transpose(0, 1), counts[:2])
+    for value_words in (False, True):
+        with pytest.raises(ValueError):
+            keccak_f1600.launch_digest(blocks.cpu(), counts.cpu(), value_words)
+        with pytest.raises(ValueError):
+            keccak_f1600.launch_digest(blocks, counts.cpu(), value_words)  # two devices
+        with pytest.raises(ValueError):
+            keccak_f1600.launch_digest(blocks, counts[:3], value_words)
+        with pytest.raises(TypeError):
+            keccak_f1600.launch_digest(blocks, counts.to(torch.int64), value_words)
+        with pytest.raises(ValueError):
+            keccak_f1600.launch_digest(blocks.transpose(0, 1), counts[:2], value_words)
+        assert keccak_f1600.launch_digest(blocks[:0], counts[:0], value_words).shape == (0, 8)
     empty = ecrecover.launch(z[:0], r[:0], s[:0], v[:0])
     assert empty[0].shape == (0, 20) and empty[3].shape == (0,)
 
@@ -170,12 +208,13 @@ def test_launchers_refuse_cpu_and_malformed_tensors(cuda_device, recovery_lanes)
 def test_round_certify_on_card_matches_cpu(cuda_device):
     arrays = convert.workload_arrays(build_round_workload(8, corrupt_frac=0.25))
     ref = tq.round_certify(*convert.round_args(arrays, device="cpu"))
-    counts = (tk.keccak_f, tk.keccak256_blocks, ecrecover.recover)
+    counts = (tk.keccak_f, tk.keccak256_blocks, tq.digest_words, ecrecover.recover)
     before = [fn.launches for fn in counts]
     ours = tq.round_certify(*convert.round_args(arrays))  # the default device is the card
-    # One sponge launch for the payload digests, one recovery launch (the
-    # address hash runs inside it); the bare permutation is off the path.
-    assert [fn.launches - b for fn, b in zip(counts, before)] == [0, 1, 1]
+    # One digest launch for the payload digests (value words, no glue), one
+    # recovery launch (the address hash runs inside it); the bare
+    # permutation and the stream-word form are off the path.
+    assert [fn.launches - b for fn, b in zip(counts, before)] == [0, 0, 1, 1]
     for a, b in zip(ours, ref):
         assert torch.equal(a.cpu(), b)
 
@@ -185,7 +224,9 @@ def test_certify_round_on_card_matches_cpu(cuda_device):
     src = ECDSABackend.static_validators({m.sender: 1 for m in rnd.prepares})
     card = DeviceBatchVerifier(src)
     assert card.device.type == "cuda"
+    before = tq.digest_words.launches
     ours = card.certify_round(rnd.prepares, rnd.proposal_hash, rnd.seals, rnd.height)
+    assert tq.digest_words.launches == before + 1
     ref = DeviceBatchVerifier(src, device="cpu").certify_round(
         rnd.prepares, rnd.proposal_hash, rnd.seals, rnd.height
     )

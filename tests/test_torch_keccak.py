@@ -95,14 +95,15 @@ def test_keccak256_blocks_plain_matches_jax_three_blocks_ragged():
 def test_sponge_launch_refuses_cpu_and_malformed_inputs():
     blocks = _t(np.zeros((4, 2, 17, 2), dtype=np.uint32))
     counts = torch.ones(4, dtype=torch.int32)
-    with pytest.raises(ValueError):
-        keccak_f1600.launch_sponge(blocks, counts)  # no quiet CPU path behind the kernel
-    with pytest.raises(TypeError):
-        keccak_f1600.launch_sponge(blocks, counts.to(torch.int64))
-    with pytest.raises(ValueError):
-        keccak_f1600.launch_sponge(blocks[:, :, :16], counts)
-    with pytest.raises(ValueError):
-        keccak_f1600.launch_sponge(blocks, counts[:3])
+    for value_words in (False, True):
+        with pytest.raises(ValueError):
+            keccak_f1600.launch_digest(blocks, counts, value_words)  # no quiet CPU path
+        with pytest.raises(TypeError):
+            keccak_f1600.launch_digest(blocks, counts.to(torch.int64), value_words)
+        with pytest.raises(ValueError):
+            keccak_f1600.launch_digest(blocks[:, :, :16], counts, value_words)
+        with pytest.raises(ValueError):
+            keccak_f1600.launch_digest(blocks, counts[:3], value_words)
     with pytest.raises(ValueError):
         tk.keccak256_blocks(blocks.to("meta"), counts.to("meta"))
 
