@@ -47,10 +47,25 @@ Phases, in order (any failure exits non-zero and prints no result):
    are held bit-exact against their plain versions on the first inputs of
    each shape the engine gave them.  Any host fallback, breaker trip or
    missing native library fails the run;
-9. print the ``kernels`` line (each kernel's ``ms`` is CUDA events over
+9. the chain phase (:func:`chain_phase`), every drain through a
+   ``DeviceBatchVerifier`` on the card — E: the commit critical path of one
+   engine among 100 validators (``bench/chain.py::commit_critical_path``),
+   5 heights without a speculator or the COMMIT early exit, then 5 with
+   both; F: a ``ChainRunner`` for one of 100 validators, 32 back-to-back
+   heights with a WAL (fsync on), the overlap worker and a speculator, its
+   Chrome trace split by span and by ``obs/timeline.py``'s phases, then a
+   fresh runner's ``recover()`` from the WAL (height 33, the same blocks)
+   and another's catch-up of all 32 heights through ``SyncClient`` in one
+   seal drain, and a peer's block with 34 corrupted seals rejected; three
+   threads through one verifier, every mask equal to the host oracle; both
+   kernels held bit-exact against their plain versions on the first inputs
+   of each shape these runs uploaded.  Any fallback, fault, dropped
+   speculation lane or finalized seal the oracle rejects fails the run;
+10. print the ``kernels`` line (each kernel's ``ms`` is CUDA events over
    back-to-back launches; ``device_ms_per_launch`` its time on the card per
    launch, from the profiler; ``launches`` phase 4's count, ``engine_launches``
-   engine run A's over its 5 heights), then the result line.
+   engine run A's over its 5 heights, ``chain_launches`` chain run F's over
+   its 32), then the result line.
 
 ``--digest-only`` runs none of this: it times ``ops.quorum.digest_words``
 and the recovery kernel of whichever ``go_ibft_tpu_torch`` comes first on
@@ -282,55 +297,42 @@ def main_path_inputs(rargs, quorum):
     return blocks, counts, zw, r, s, v
 
 
-def engine_phase(report: dict, ident: str, counts, holds) -> dict:
-    """Phase 8: the consensus engine on the card (see the module docstring).
+def no_host_fallback(what: str) -> None:
+    """Fail if anything fell back to the host or tripped the breaker."""
+    from go_ibft_tpu_torch.utils import metrics
 
-    ``counts`` is main()'s ``(reset_counts, read_counts)``, ``holds`` its
-    ``(hold_digest, hold_recovery)``.  Every time printed is host clock
-    (``time.perf_counter``) on this card, whose name and power limit
-    ``ident`` carries.  Returns the launch counts of run A's 5 heights, per
-    kernel."""
+    bad = {k: metrics.get_counter(("go-ibft",) + k) for k in (
+        ("resilient", "certify_fallback"), ("resilient", "drain_faults"),
+        ("resilient", "quarantined_lanes"), ("breaker", "demote"), ("breaker", "probe"))}
+    check(not any(bad.values()), f"{what}: no host fallback and no breaker trip ({bad})")
+
+
+def drain_counts() -> dict:
+    """The card's drains so far: envelope drains and early-exit seal drains."""
+    from go_ibft_tpu_torch.utils import metrics
+    from go_ibft_tpu_torch.verify.batch import EARLY_EXIT_DRAINS_KEY
+
+    return {"verify_senders": len(metrics.get_histogram(("go-ibft", "device", "verify_senders_ms"))),
+            "verify_seals_early_exit": metrics.get_counter(EARLY_EXIT_DRAINS_KEY)}
+
+
+def checked_verifier(kept: dict):
+    """The card's verifier as the engine and the chain drive it: each
+    drain's mask against the signatures the committee corrupted
+    (``corrupted``), and the first inputs with live lanes of each shape that
+    a dispatch gives the two kernels kept in ``kept``.  The drains upload
+    one packed chunk per dispatch, so ``dispatches`` counts uploads."""
     import numpy as np
 
-    from go_ibft_tpu_torch import native
-    from go_ibft_tpu_torch.bench.engine import Committee, EngineRunner, check_height, run_cluster
-    from go_ibft_tpu_torch.crypto import ecdsa
-    from go_ibft_tpu_torch.crypto.backend import proposal_hash_of
-    from go_ibft_tpu_torch.utils import metrics
-    from go_ibft_tpu_torch.verify import (
-        AdaptiveBatchVerifier, DeviceBatchVerifier, HostBatchVerifier,
-    )
-    from go_ibft_tpu_torch.verify.batch import EARLY_EXIT_DRAINS_KEY, _as_signed
-    from go_ibft_tpu_torch.verify.pipeline import observe_overlap_efficiency
-
-    reset_counts, read_counts = counts
-    hold_digest, hold_recovery = holds
-    check(native.load() is not None, f"the native host library loads ({native.build_error()})")
-    out: dict = {"gpu": ident}
-    # The first inputs with live lanes of each shape that a dispatch gives
-    # the two kernels, across every run; held against the plain versions at
-    # the end, once no count is read any more.
-    kept: dict = {}
-
-    def no_fallback(what):
-        bad = {k: metrics.get_counter(("go-ibft",) + k) for k in (
-            ("resilient", "certify_fallback"), ("resilient", "drain_faults"),
-            ("resilient", "quarantined_lanes"), ("breaker", "demote"), ("breaker", "probe"))}
-        check(not any(bad.values()), f"{what}: no host fallback and no breaker trip ({bad})")
-
-    def drains():
-        return {"verify_senders": len(metrics.get_histogram(("go-ibft", "device", "verify_senders_ms"))),
-                "verify_seals_early_exit": metrics.get_counter(EARLY_EXIT_DRAINS_KEY)}
+    from go_ibft_tpu_torch.verify import DeviceBatchVerifier
+    from go_ibft_tpu_torch.verify.batch import _as_signed
 
     class Checked(DeviceBatchVerifier):
-        """The card's verifier as the engine drives it: each drain's mask
-        against the signatures the committee corrupted (``corrupted``), and
-        the kernels' inputs kept in ``kept``.  The engine's drains upload one
-        packed chunk per dispatch, so ``dispatches`` counts uploads."""
-
-        def __init__(self, src, corrupted=frozenset()):
+        def __init__(self, src, corrupted=None):
             super().__init__(src)
-            self.corrupted, self.dispatches = corrupted, 0
+            # The committee's own set: its schedules add to it as they sign.
+            self.corrupted = corrupted if corrupted is not None else set()
+            self.dispatches = 0
 
         def _upload(self, slot, lanes, tag=""):
             ins = super()._upload(slot, lanes, tag)
@@ -360,11 +362,50 @@ def engine_phase(report: dict, ident: str, counts, holds) -> dict:
                   f"a {len(seals)}-seal drain's mask == the honest set")
             return mask
 
+        def verify_seal_lanes(self, lanes, height):
+            mask = super().verify_seal_lanes(lanes, height)
+            check(np.array_equal(mask, self._honest([seal for _, seal in lanes])),
+                  f"a {len(lanes)}-lane seal drain's mask == the honest set")
+            return mask
+
         def verify_seals_early_exit(self, proposal_hash, seals, height, threshold=None):
             rep = super().verify_seals_early_exit(proposal_hash, seals, height, threshold)
             check(np.array_equal(rep.mask, rep.verified & self._honest(seals)),
                   f"a {len(seals)}-seal early exit's mask == the honest set")
             return rep
+
+    return Checked
+
+
+def engine_phase(report: dict, ident: str, counts, holds) -> dict:
+    """Phase 8: the consensus engine on the card (see the module docstring).
+
+    ``counts`` is main()'s ``(reset_counts, read_counts)``, ``holds`` its
+    ``(hold_digest, hold_recovery)``.  Every time printed is host clock
+    (``time.perf_counter``) on this card, whose name and power limit
+    ``ident`` carries.  Returns the launch counts of run A's 5 heights, per
+    kernel, and the ``(kernel, shape)`` keys of the inputs it held."""
+    import numpy as np
+
+    from go_ibft_tpu_torch import native
+    from go_ibft_tpu_torch.bench.engine import Committee, EngineRunner, check_height, run_cluster
+    from go_ibft_tpu_torch.crypto import ecdsa
+    from go_ibft_tpu_torch.crypto.backend import proposal_hash_of
+    from go_ibft_tpu_torch.utils import metrics
+    from go_ibft_tpu_torch.verify import AdaptiveBatchVerifier, HostBatchVerifier
+    from go_ibft_tpu_torch.verify.pipeline import observe_overlap_efficiency
+
+    reset_counts, read_counts = counts
+    hold_digest, hold_recovery = holds
+    check(native.load() is not None, f"the native host library loads ({native.build_error()})")
+    out: dict = {"gpu": ident}
+    # The first inputs with live lanes of each shape that a dispatch gives
+    # the two kernels, across every run; held against the plain versions at
+    # the end, once no count is read any more.
+    kept: dict = {}
+
+    no_fallback, drains = no_host_fallback, drain_counts
+    Checked = checked_verifier(kept)
 
     def drive(committee, me, verifier, heights, what, per_height=None):
         runner = EngineRunner(committee, me, verifier)
@@ -533,7 +574,201 @@ def engine_phase(report: dict, ident: str, counts, holds) -> dict:
         check(any(k == name for k, _ in kept), f"the engine's {name} inputs held")
     log(f"[8] the kernels bit-exact against plain at the engine's own inputs: {out['held_shapes']}")
     report["engine"] = out
-    return engine_launches
+    return engine_launches, set(kept)
+
+
+def chain_phase(report: dict, ident: str, counts, holds, held_before: set) -> dict:
+    """Phase 9: the chain on the card (see the module docstring).
+
+    ``counts`` and ``holds`` are main()'s, ``held_before`` the kernel input
+    shapes phase 8 held (reported beside the chain's own).  Every drain goes through a
+    ``DeviceBatchVerifier`` on the card; each run's launch counts are set to
+    0 just before it and read just after.  Times are host clock on the card
+    ``ident`` names.  Returns run F's launch counts over its 32 heights."""
+    import tempfile
+
+    import numpy as np
+
+    from go_ibft_tpu_torch.bench import build_signed_round
+    from go_ibft_tpu_torch.bench import chain as bc
+    from go_ibft_tpu_torch.bench.engine import Committee
+    from go_ibft_tpu_torch.chain import LoopbackSyncNetwork, SyncClient, SyncError
+    from go_ibft_tpu_torch.chain.sync import SYNC_DRAINS_KEY
+    from go_ibft_tpu_torch.crypto import ecdsa
+    from go_ibft_tpu_torch.crypto.backend import proposal_hash_of
+    from go_ibft_tpu_torch.obs import trace
+    from go_ibft_tpu_torch.utils import metrics
+    from go_ibft_tpu_torch.verify import DeviceBatchVerifier, HostBatchVerifier
+
+    reset_counts, read_counts = counts
+    hold_digest, hold_recovery = holds
+    kept: dict = {}
+    Checked = checked_verifier(kept)
+    out: dict = {"gpu": ident}
+    committee = Committee(100, seed=0)
+    oracle: dict = {}
+
+    def oracle_valid(proposal, seals, what):
+        """Every seal recovers to its signer with Python ints
+        (``recover_pure``), and their power reaches the quorum."""
+        phash = proposal_hash_of(proposal)
+        for seal in seals:
+            key = (phash, seal.signature)
+            if key not in oracle:
+                sig = seal.signature
+                pub = ecdsa.recover_pure(phash, int.from_bytes(sig[:32], "big"),
+                                         int.from_bytes(sig[32:64], "big"), sig[64])
+                oracle[key] = pub is not None and ecdsa.pubkey_to_address(*pub) == seal.signer
+            check(oracle[key], f"{what}: a finalized seal passes the host oracle")
+        check(len({s.signer for s in seals}) >= committee.quorum, f"{what}: seals reach the quorum")
+
+    def per_height(launches, n):
+        return {k: v / n for k, v in launches.items()}
+
+    # -- E: the commit critical path, variant OFF then ON ------------------
+    me = 1
+    heights = committee.heights(me, 5)
+    e = {}
+    for variant, speculate in (("off", False), ("on", True)):
+        card = Checked(committee.src)
+        card.warmup(lanes=(8, 128), blocks=(2, 8))
+        card.dispatches = 0
+        metrics.reset()
+        reset_counts()
+        run = bc.commit_critical_path(committee, me, card, heights, speculate=speculate)
+        launches = read_counts()
+        no_host_fallback(f"E {variant}")
+        for h, (proposal, seals) in zip(heights, run["inserted"]):
+            oracle_valid(proposal, seals, f"E {variant} height {h}")
+        check(len(run["inserted"]) == 5, f"E {variant}: 5 heights finalized")
+        spec = run.pop("speculation")
+        run.pop("inserted")
+        if speculate:
+            check(spec["speculated_lanes"] > 0, f"E on: speculated lanes ({spec})")
+            check(spec["faults"] == 0 and spec["dropped_lanes"] == 0, f"E on: no fault, no dropped lane ({spec})")
+        e[variant] = {**run, "speculation": spec, "launches_per_height": per_height(launches, 5),
+                      "dispatches_per_height": card.dispatches / 5}
+        log(f"[9] E {variant} on {ident}: accept->finalize median {run['median_ms']:.3f} ms of "
+            f"{[round(x, 3) for x in run['accept_to_finalize_ms']]}, speculation {spec}, early-exit lanes "
+            f"skipped {run['early_exit_lanes_skipped']}, launches a height {e[variant]['launches_per_height']}")
+    out["E_commit_critical_path"] = e
+
+    # -- F: a 32-height chain, crash and recovery, sync -------------------
+    n_heights = 32
+    me = bc.proposer_free_validator(committee, n_heights)
+    f: dict = {"validator": me, "heights": n_heights}
+    with tempfile.TemporaryDirectory() as tmp:
+        wal = os.path.join(tmp, "wal.jsonl")
+        card = Checked(committee.src)
+        card.warmup(lanes=(8, 128), blocks=(2, 8))
+        card.dispatches = 0
+        drv = bc.ChainFeeder(committee, me, card, wal)
+        metrics.reset()
+        trace.enable(1 << 18)
+        reset_counts()
+        try:
+            stats = drv.run(n_heights)
+            chain_launches = read_counts()
+            trace_path = os.path.join(tmp, "chain_trace.json")
+            drv.runner.export_trace(trace_path)
+        finally:
+            trace.disable()
+        no_host_fallback("F chain")
+        spec = stats["speculation"]
+        check(stats["heights_run"] == n_heights, f"F: {n_heights} heights finalized ({stats})")
+        check(stats["overlapped_lanes"] > 0, f"F: the overlap worker verified next-height lanes ({stats})")
+        check(spec["speculated_lanes"] > 0 and spec["faults"] == 0 and spec["dropped_lanes"] == 0,
+              f"F: speculated lanes, no fault, no dropped lane ({spec})")
+        chain = list(drv.runner.chain)
+        for block in chain:
+            oracle_valid(block.proposal, block.seals, f"F height {block.height}")
+        f["chain"] = {**stats, "launches_per_height": per_height(chain_launches, n_heights),
+                      "drains_per_height": per_height(drain_counts(), n_heights),
+                      "dispatches_per_height": card.dispatches / n_heights}
+        f["host_split_ms_per_height"] = bc.span_split(trace_path, n_heights)
+        f["phase_split_ms"] = bc.phase_split(trace_path, drv.engine._obs_track, committee.quorum)
+        log(f"[9] F chain on {ident}: {n_heights} heights at {stats['blocks_per_s']:.2f} blocks/s (traced), "
+            f"handoff mean {stats['handoff_ms_mean']:.4f} ms max {stats['handoff_ms_max']:.4f} ms, overlapped "
+            f"{stats['overlapped_lanes']} lanes in {stats['overlap_batches']} batches, speculation {spec}, "
+            f"launches a height {f['chain']['launches_per_height']}, drains a height {f['chain']['drains_per_height']}")
+        print("[9] F per-layer split of a height's host time (ms a height, runner trace): "
+              + json.dumps({k: round(v, 4) for k, v in f["host_split_ms_per_height"].items()}), flush=True)
+        print("[9] F phase split (obs/timeline.py reconstruct + _phase_split, mean ms a height): "
+              + json.dumps({k: round(v, 4) for k, v in f["phase_split_ms"].items()}), flush=True)
+
+        # Crash and recovery: a fresh runner on the same WAL.
+        _, resumed, reinserted = bc.recover_runner(committee, me, card, wal)
+        check(resumed == n_heights + 1, f"F recovery resumes at {n_heights + 1} (got {resumed})")
+        check([(p.encode(), [(s.signer, s.signature) for s in seals]) for p, seals in reinserted]
+              == [(b.proposal.encode(), [(s.signer, s.signature) for s in b.seals]) for b in chain],
+              "F recovery: the same 32 blocks byte for byte")
+        log(f"[9] F recovery: resumes at height {resumed} with the same {len(reinserted)} blocks")
+
+        # Sync: a fresh runner with an empty WAL catches up from the first.
+        metrics.reset()
+        reset_counts()
+        t0 = time.perf_counter()
+        synced = bc.sync_runner(committee, me, card, os.path.join(tmp, "wal-sync.jsonl"), drv.runner, n_heights)
+        sync_s = time.perf_counter() - t0
+        sync_launches = read_counts()
+        no_host_fallback("F sync")
+        lanes = sum(len(b.seals) for b in chain)
+        drains = metrics.get_counter(SYNC_DRAINS_KEY)
+        check(synced.synced_heights == n_heights and drains == 1,
+              f"F sync: {n_heights} heights in one drain (got {synced.synced_heights}, {drains} drains)")
+        check([(b.height, b.proposal.encode(), [(s.signer, s.signature) for s in b.seals]) for b in synced.chain]
+              == [(b.height, b.proposal.encode(), [(s.signer, s.signature) for s in b.seals]) for b in chain],
+              "F sync: the synced chain equals the first")
+        f["sync"] = {"lanes": lanes, "drains": drains, "wall_s": sync_s, "launches": sync_launches}
+        log(f"[9] F sync: {n_heights} heights, {lanes} seal lanes in {drains} drain, {sync_s * 1e3:.1f} ms "
+            f"(the watcher's polls included), launches {sync_launches}")
+
+        # A peer serving one block with 34 corrupted seals.
+        blocks = list(chain)
+        blocks[n_heights // 2] = bc.corrupt_seals(blocks[n_heights // 2], 34)
+        card.corrupted |= {s.signature for s in blocks[n_heights // 2].seals[:34]}
+        net = LoopbackSyncNetwork()
+        net.register(b"peer", bc.StaticSource(blocks))
+        try:
+            SyncClient(b"me", net, card, committee.src).catch_up(1, n_heights)
+            check(False, "F: the corrupted block was accepted")
+        except SyncError as err:
+            check(f"height {n_heights // 2 + 1}" in str(err) and "< quorum" in str(err),
+                  f"F: SyncError with power below the quorum ({err})")
+            f["corrupted_block_error"] = str(err)
+            log(f"[9] F corrupted block rejected: SyncError: {err}")
+    out["F_chain"] = f
+
+    # -- concurrency: three threads through one verifier --------------------
+    rounds = [build_signed_round(100, height=h, corrupt_frac=0.3, seed=h) for h in (1, 2, 3)]
+    powers = {rnd.height: {m.sender: 1 for m in rnd.prepares} for rnd in rounds}
+    for rnd in rounds:
+        host = HostBatchVerifier(lambda h: powers[h], recover_fn=ecdsa.recover_pure)
+        check(np.array_equal(host.verify_senders(rnd.prepares), rnd.expected_prepare_mask)
+              and np.array_equal(host.verify_seal_lanes([(rnd.proposal_hash, s) for s in rnd.seals], rnd.height),
+                                 rnd.expected_seal_mask), f"height {rnd.height}: expected masks == host oracle")
+    shared = DeviceBatchVerifier(lambda h: powers[h], cache_heights=2)
+    t0 = time.perf_counter()
+    calls = bc.concurrent_drains(shared, rounds)
+    out["threads"] = {"threads": 3, "calls": calls, "wall_s": time.perf_counter() - t0}
+    log(f"[9] three threads x 50 x (verify_senders + verify_seal_lanes) through one DeviceBatchVerifier "
+        f"(cache_heights 2, 3 heights): {calls} masks == the host oracle in {out['threads']['wall_s']:.2f} s")
+
+    # -- the kernels at the chain's own inputs -------------------------------
+    # Every shape the chain's dispatches uploaded, phase 8's shapes too: the
+    # chain's inputs differ (the sync drain's per-lane proposal hashes, the
+    # speculator's and the overlap worker's batches).
+    for (name, shape), ins in sorted(kept.items(), key=str):
+        if name == "keccak256_digest":
+            hold_digest(*ins, f"the chain's dispatch at {shape}")
+        else:
+            hold_recovery(ins, f"secp256k1_recover kernel == plain on the chain's {shape[0]} lanes")
+    out["held_shapes"] = sorted(f"{name} {shape}" for name, shape in kept)
+    out["held_shapes_new"] = sorted(f"{name} {shape}" for name, shape in kept if (name, shape) not in held_before)
+    log(f"[9] the kernels bit-exact against plain at the chain's own inputs: {out['held_shapes']} "
+        f"(not held in phase 8: {out['held_shapes_new']})")
+    report["chain"] = out
+    return chain_launches
 
 
 def digest_only() -> int:
@@ -903,10 +1138,14 @@ def main() -> int:
     report["medians"] = medians
 
     # -- 8. the consensus engine on the card --------------------------
-    engine_launches = engine_phase(report, ident, (reset_counts, read_counts),
-                                   (hold_digest, hold_recovery))
+    engine_launches, held = engine_phase(report, ident, (reset_counts, read_counts),
+                                         (hold_digest, hold_recovery))
 
-    # -- 9. the kernels line and the result ----------------------------
+    # -- 9. the chain on the card --------------------------------------
+    chain_launches = chain_phase(report, ident, (reset_counts, read_counts),
+                                 (hold_digest, hold_recovery), held)
+
+    # -- 10. the kernels line and the result ---------------------------
     main = {"keccak_f1600": timing["keccak_f1600"][256],  # PR 1's main-path size
             "keccak256_digest": timing["keccak256_digest"]["100v"],
             "secp256k1_recover": timing["secp256k1_recover"]["100v"]}
@@ -928,6 +1167,7 @@ def main() -> int:
         "replaces": where[name][1],
         "launches": launches[name],
         "engine_launches": engine_launches[name],
+        "chain_launches": chain_launches[name],
         "max_abs_err": err[name],
         "ms": main[name]["ms"],
         "device_ms_per_launch": main[name]["device_ms_per_launch"],

@@ -55,6 +55,16 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}  # nvcc output per source (-Xptxas -v report)
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, the count of its kernel's launches
+    (locked: the chain's worker threads launch beside the event loop)."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
 def find_nvcc() -> str:
     for cand in (
         shutil.which("nvcc"),

@@ -139,7 +139,7 @@ def recover(z: torch.Tensor, r: torch.Tensor, s: torch.Tensor, v: torch.Tensor) 
     if v.device.type == "cuda":
         out = launch(z, r, s, v)
         if v.numel():  # an empty batch launches nothing
-            recover.launches += 1
+            _build.count_launch(recover)
         return out
     if v.device.type == "cpu":
         return recover_plain(z, r, s, v)

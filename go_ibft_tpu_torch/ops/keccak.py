@@ -30,6 +30,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import _build
 from . import keccak_f1600
 from .keccak_f1600 import bswap32
 from .fields import LIMB_BITS, LIMB_MASK
@@ -61,7 +62,7 @@ def keccak_f(state: torch.Tensor) -> torch.Tensor:
     if state.device.type == "cuda":
         out = keccak_f1600.launch(state)
         if state.numel():  # an empty batch launches nothing
-            keccak_f.launches += 1
+            _build.count_launch(keccak_f)
         return out
     if state.device.type == "cpu":
         return keccak_f1600.keccak_f_plain(state)
@@ -86,7 +87,7 @@ def keccak256_blocks(blocks: torch.Tensor, num_blocks: torch.Tensor) -> torch.Te
     if blocks.device.type == "cuda":
         out = keccak_f1600.launch_digest(blocks, num_blocks, value_words=False)
         if num_blocks.numel():  # an empty batch launches nothing
-            keccak256_blocks.launches += 1
+            _build.count_launch(keccak256_blocks)
         return out
     if blocks.device.type == "cpu":
         return keccak_f1600.keccak256_sponge_plain(blocks, num_blocks)

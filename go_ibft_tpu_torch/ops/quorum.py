@@ -21,6 +21,7 @@ from typing import Tuple
 
 import torch
 
+from .. import _build
 from . import ecrecover, keccak_f1600
 
 __all__ = [
@@ -65,7 +66,7 @@ def digest_words(blocks: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
     if blocks.device.type == "cuda":
         out = keccak_f1600.launch_digest(blocks, nblocks, value_words=True)
         if nblocks.numel():  # an empty batch launches nothing
-            digest_words.launches += 1
+            _build.count_launch(digest_words)
         return out
     if blocks.device.type == "cpu":
         return keccak_f1600.digest_words_plain(blocks, nblocks)

@@ -10,14 +10,20 @@
   through the double-buffered :class:`VerifyPipeline`.
 * :class:`AdaptiveBatchVerifier` — tiny batches on the host, the rest on
   the card.
-* :class:`ResilientBatchVerifier` — quarantines poison lanes by bisection
-  and demotes a faulting card down the ``device -> host -> pure Python``
-  ladder through a :class:`CircuitBreaker`.
+* :class:`ResilientBatchVerifier` — quarantines poison lanes by bisection;
+  a device rung off the card that faults is demoted down the
+  ``device -> host -> pure Python`` ladder through a :class:`CircuitBreaker`.
+  On the card nothing is demoted: a kernel fault propagates to the caller,
+  and only the lanes the packer names malformed are quarantined.
+* :class:`SpeculativeVerifier` — verifies COMMIT seals on a worker thread
+  as they arrive, into a :class:`SpeculationCache` the engine's drains read;
+  on the card the worker's first fault is raised by ``drain()`` and
+  ``stop()``.
 
 All return identical boolean masks for identical inputs, and every one
 serves ``verify_seals_early_exit``, a seal drain that stops at the exact
-voting-power quorum (:class:`EarlyExitReport`).  The JAX package's
-speculative verifier, mesh verifier and BLS aggregation are not ported yet.
+voting-power quorum (:class:`EarlyExitReport`).  The JAX package's mesh
+verifier and BLS aggregation are not ported yet.
 """
 
 from .batch import (
@@ -35,6 +41,7 @@ from .batch import (
     split_signature,
 )
 from .pipeline import CircuitBreaker, PackCache, VerifyPipeline
+from .speculate import SpeculationCache, SpeculativeVerifier
 
 __all__ = [
     "AdaptiveBatchVerifier",
@@ -47,6 +54,8 @@ __all__ = [
     "PackCache",
     "ResilientBatchVerifier",
     "SIG_BYTES",
+    "SpeculationCache",
+    "SpeculativeVerifier",
     "VerifyPipeline",
     "pack_seal_batch",
     "pack_sender_batch",

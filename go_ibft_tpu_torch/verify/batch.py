@@ -45,6 +45,7 @@ directly for committed seals.
 
 from __future__ import annotations
 
+import threading
 import time
 from contextlib import ExitStack
 from dataclasses import dataclass
@@ -114,9 +115,13 @@ class MalformedLaneError(ValueError):
 
 def on_card(verifier) -> bool:
     """Whether ``verifier`` launches CUDA kernels (its ``device`` is a CUDA
-    device): its faults are the card's, and no host route may hide them."""
+    device, or its device rung's is, through the resilient and adaptive
+    ladders and :class:`EngineScope`): its faults are the card's, and no
+    host route may hide them."""
     dev = getattr(verifier, "device", None)
-    return isinstance(dev, torch.device) and dev.type == "cuda"
+    if isinstance(dev, torch.device):
+        return dev.type == "cuda"
+    return dev is not None and dev is not verifier and on_card(dev)
 
 
 def _bucket(n: int, buckets: Sequence[int]) -> int:
@@ -641,25 +646,46 @@ class _Staging:
     (one per array name, shape and dtype in each of ``slots`` slots, kept
     and reused) and uploaded with ``non_blocking=True`` on the current
     stream, so the host goes on packing while the copy and the kernels run.
-    A slot is reused only after the CUDA event recorded at the end of its
-    last dispatch (after the mask's copy back) has completed.  On the CPU
-    nothing is pinned and every copy is synchronous.
+    On the CPU nothing is pinned and every copy is synchronous.
+
+    Safe for concurrent callers (the chain's overlap worker, the
+    speculator's worker and the event loop drain through one verifier):
+    :meth:`begin` hands a caller a free slot and holds it for that caller
+    until its :meth:`finish`, waiting while every slot is held, and a slot
+    is reused only after the event :meth:`finish` recorded at the end of its
+    last dispatch (after the mask's copy back) has completed.  ``event``
+    makes that event (default: a CUDA event on the current stream on the
+    card, none on the CPU).
     """
 
-    def __init__(self, device: torch.device, slots: int = 2):
+    def __init__(self, device: torch.device, slots: int = 2, event: Optional[Callable[[], object]] = None):
         self.device = device
         self._bufs: List[Dict[tuple, torch.Tensor]] = [{} for _ in range(slots)]
-        self._done: List[Optional[torch.cuda.Event]] = [None] * slots
+        self._done: List[Optional[object]] = [None] * slots
+        self._held = [False] * slots
         self._next = 0
+        self._cond = threading.Condition()
+        self._event = event if event is not None else (self._record_cuda if self.pinned else None)
 
     @property
     def pinned(self) -> bool:
         return self.device.type == "cuda"
 
+    def _record_cuda(self) -> torch.cuda.Event:
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        return done
+
     def begin(self) -> int:
-        slot = self._next
-        self._next = (slot + 1) % len(self._bufs)
-        done = self._done[slot]
+        """Take a free slot (round robin), held until :meth:`finish`."""
+        with self._cond:
+            while all(self._held):
+                self._cond.wait()
+            n = len(self._held)
+            slot = next(i % n for i in range(self._next, self._next + n) if not self._held[i % n])
+            self._held[slot] = True
+            self._next = (slot + 1) % n
+            done = self._done[slot]
         if done is not None:
             done.synchronize()
         return slot
@@ -685,12 +711,15 @@ class _Staging:
         out.copy_(t, non_blocking=True)
         return out
 
-    def finish(self, slot: int) -> Optional[torch.cuda.Event]:
-        if not self.pinned:
-            return None
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self.device))
-        self._done[slot] = done
+    def finish(self, slot: int):
+        """Record the slot's end-of-dispatch event and release the slot;
+        returns the event (None on the CPU).  Call it also when the
+        dispatch raised, so that the slot is released."""
+        done = self._event() if self._event is not None else None
+        with self._cond:
+            self._done[slot] = done
+            self._held[slot] = False
+            self._cond.notify()
         return done
 
 
@@ -724,6 +753,10 @@ class DeviceBatchVerifier:
         self._quorum_packs: Dict[int, Optional[Tuple[np.ndarray, np.ndarray, np.ndarray, int]]] = {}
         self._quorum_dev: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
         self._cache_heights = cache_heights
+        # The four per-height caches are read and evicted by concurrent
+        # drains (a sync drain at old heights beside the live ones): every
+        # lookup, insert and eviction holds this lock; uploads run outside.
+        self._cache_lock = threading.RLock()
         # Per-message pack cache (round-scoped, like the engine's
         # seal-verdict cache): wakeups that re-verify the same messages
         # skip the re-encode and re-limb.
@@ -785,36 +818,45 @@ class DeviceBatchVerifier:
 
     # -- validator table management ------------------------------------
 
+    def _bounded(self, cache: dict) -> None:
+        """Evict the oldest heights past ``cache_heights`` (lock held)."""
+        while len(cache) > self._cache_heights:
+            cache.pop(min(cache))
+
     def _table_and_addrs(self, height: int) -> Tuple[np.ndarray, List[bytes]]:
         """Packed address table + the filtered address list its rows follow."""
-        hit = self._tables.get(height)
-        if hit is not None:
+        with self._cache_lock:
+            hit = self._tables.get(height)
+            if hit is not None:
+                return hit
+            addrs = [a for a in self._validators(height) if len(a) == ADDRESS_BYTES]
+            hit = self._tables[height] = (pack_validator_table(addrs), addrs)
+            self._bounded(self._tables)
             return hit
-        addrs = [a for a in self._validators(height) if len(a) == ADDRESS_BYTES]
-        table = pack_validator_table(addrs)
-        self._tables[height] = (table, addrs)
-        if len(self._tables) > self._cache_heights:
-            evicted = min(self._tables)
-            self._tables.pop(evicted)
-            self._tables_dev.pop(evicted, None)
-        return table, addrs
 
     def _table_dev(self, height: int) -> torch.Tensor:
         """Device-resident packed table (uploaded once per height)."""
-        hit = self._tables_dev.get(height)
-        if hit is None:
-            hit = torch.from_numpy(_as_signed(self._table_and_addrs(height)[0])).to(self.device)
-            self._tables_dev[height] = hit
+        with self._cache_lock:
+            hit = self._tables_dev.get(height)
+            if hit is not None:
+                return hit
+            table = self._table_and_addrs(height)[0]
+        up = torch.from_numpy(_as_signed(table)).to(self.device)
+        with self._cache_lock:
+            hit = self._tables_dev.setdefault(height, up)
+            self._bounded(self._tables_dev)
         return hit
 
     def _quorum_powers_dev(self, height: int, plo: np.ndarray, phi: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
         """Device-resident power vectors for the fused-quorum path."""
-        hit = self._quorum_dev.get(height)
-        if hit is None:
-            hit = (torch.from_numpy(plo).to(self.device), torch.from_numpy(phi).to(self.device))
-            self._quorum_dev[height] = hit
-            if len(self._quorum_dev) > self._cache_heights:
-                self._quorum_dev.pop(min(self._quorum_dev))
+        with self._cache_lock:
+            hit = self._quorum_dev.get(height)
+        if hit is not None:
+            return hit
+        up = (torch.from_numpy(plo).to(self.device), torch.from_numpy(phi).to(self.device))
+        with self._cache_lock:
+            hit = self._quorum_dev.setdefault(height, up)
+            self._bounded(self._quorum_dev)
         return hit
 
     def _quorum_pack(self, height: int) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray, int]]:
@@ -822,27 +864,27 @@ class DeviceBatchVerifier:
         the split-int32 path cannot represent the set exactly (a power or
         the total >= 2**31, or an empty set): callers then fall back to
         the host big-int quorum."""
-        if height in self._quorum_packs:
-            return self._quorum_packs[height]
-        powers_map = self._validators(height)
-        pack = None
-        try:
-            table, addrs = self._table_and_addrs(height)
-        except ValueError:  # empty validator set
-            addrs = []
-        # The total is over the FULL map, like the host ValidatorManager.
-        total = sum(powers_map.values())
-        if addrs and 0 < total < (1 << 31) and all(0 <= p < (1 << 31) for p in powers_map.values()):
-            v = table.shape[0]
-            plo = np.zeros(v, dtype=np.int32)
-            phi = np.zeros(v, dtype=np.int32)
-            for i, a in enumerate(addrs):
-                plo[i], phi[i] = quorum.split_power(powers_map[a])
-            pack = (table, plo, phi, calculate_quorum(total))
-        self._quorum_packs[height] = pack
-        if len(self._quorum_packs) > self._cache_heights:
-            self._quorum_packs.pop(min(self._quorum_packs))
-        return pack
+        with self._cache_lock:
+            if height in self._quorum_packs:
+                return self._quorum_packs[height]
+            powers_map = self._validators(height)
+            pack = None
+            try:
+                table, addrs = self._table_and_addrs(height)
+            except ValueError:  # empty validator set
+                addrs = []
+            # The total is over the FULL map, like the host ValidatorManager.
+            total = sum(powers_map.values())
+            if addrs and 0 < total < (1 << 31) and all(0 <= p < (1 << 31) for p in powers_map.values()):
+                v = table.shape[0]
+                plo = np.zeros(v, dtype=np.int32)
+                phi = np.zeros(v, dtype=np.int32)
+                for i, a in enumerate(addrs):
+                    plo[i], phi[i] = quorum.split_power(powers_map[a])
+                pack = (table, plo, phi, calculate_quorum(total))
+            self._quorum_packs[height] = pack
+            self._bounded(self._quorum_packs)
+            return pack
 
     def supports_fused(self, height: int) -> bool:
         """True when the fused mask+quorum path is exact for this height."""
@@ -911,14 +953,17 @@ class DeviceBatchVerifier:
         ):
             with trace.span("verify.dispatch", route="device"):
                 slot = self._staging.begin()
-                ok, eq = self._mask(self._upload(slot, lanes), table)
-                reached = None
-                if quorum_args is not None:
-                    plo, phi, thr = quorum_args
-                    reached, _, _ = quorum.power_reduce(ok, eq, plo, phi, *_threshold(thr))
-                    reached = self._staging.download(reached)
-                mask = self._staging.download(ok)
-                return mask, reached, self._staging.finish(slot)
+                try:
+                    ok, eq = self._mask(self._upload(slot, lanes), table)
+                    reached = None
+                    if quorum_args is not None:
+                        plo, phi, thr = quorum_args
+                        reached, _, _ = quorum.power_reduce(ok, eq, plo, phi, *_threshold(thr))
+                        reached = self._staging.download(reached)
+                    mask = self._staging.download(ok)
+                finally:
+                    done = self._staging.finish(slot)
+                return mask, reached, done
 
     @staticmethod
     def _readback(handle) -> Tuple[np.ndarray, Optional[bool]]:
@@ -1053,19 +1098,18 @@ class DeviceBatchVerifier:
             ):
                 with trace.span("verify.dispatch", route="device"):
                     slot = self._staging.begin()
-                    both = tuple(
-                        torch.cat([a, b])
-                        for a, b in zip(self._upload(slot, prep, "prepare."), self._upload(slot, seal, "seal."))
-                    )
-                    ok, eq = self._mask(both, table)
-                    p_reached, _, _ = quorum.power_reduce(ok[:lanes], eq[:lanes], plo, phi, *_threshold(p_thr))
-                    s_reached, _, _ = quorum.power_reduce(ok[lanes:], eq[lanes:], plo, phi, *_threshold(seal_thr))
-                    handle = (
-                        self._staging.download(ok),
-                        self._staging.download(torch.stack([p_reached, s_reached])),
-                        self._staging.finish(slot),
-                    )
-                mask, both_reached, done = handle
+                    try:
+                        both = tuple(
+                            torch.cat([a, b])
+                            for a, b in zip(self._upload(slot, prep, "prepare."), self._upload(slot, seal, "seal."))
+                        )
+                        ok, eq = self._mask(both, table)
+                        p_reached, _, _ = quorum.power_reduce(ok[:lanes], eq[:lanes], plo, phi, *_threshold(p_thr))
+                        s_reached, _, _ = quorum.power_reduce(ok[lanes:], eq[lanes:], plo, phi, *_threshold(seal_thr))
+                        mask = self._staging.download(ok)
+                        both_reached = self._staging.download(torch.stack([p_reached, s_reached]))
+                    finally:
+                        done = self._staging.finish(slot)
                 with trace.span("verify.device_wait", route="device"):
                     if done is not None:
                         done.synchronize()

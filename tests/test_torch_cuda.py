@@ -295,9 +295,21 @@ def test_engine_finalizes_heights_on_card_without_fallback(cuda_device):
     assert verifier.breaker.level == 0
 
 
+# Modules the walk below must reach: the chain layer, the chaos tools, the
+# host tracing tools and the speculator, besides everything else.
+CHAIN_SLICE_MODULES = (
+    "go_ibft_tpu_torch.chain", "go_ibft_tpu_torch.chain.runner", "go_ibft_tpu_torch.chain.sync",
+    "go_ibft_tpu_torch.chain.wal", "go_ibft_tpu_torch.chaos", "go_ibft_tpu_torch.chaos.injector",
+    "go_ibft_tpu_torch.chaos.wrappers", "go_ibft_tpu_torch.obs.clock", "go_ibft_tpu_torch.obs.export",
+    "go_ibft_tpu_torch.obs.timeline", "go_ibft_tpu_torch.obs.metrics_export", "go_ibft_tpu_torch.obs.httpd",
+    "go_ibft_tpu_torch.verify.speculate", "go_ibft_tpu_torch.bench.chain",
+)
+
+
 def test_port_imports_nothing_of_jax():
     """A fresh interpreter where ``import jax`` fails imports every module
-    of ``go_ibft_tpu_torch``; no ``go_ibft_tpu`` module gets loaded."""
+    of ``go_ibft_tpu_torch``, the chain slice's among them; no
+    ``go_ibft_tpu`` module gets loaded."""
     root = Path(__file__).resolve().parent.parent
     code = """
 import importlib, pkgutil, sys
@@ -307,11 +319,51 @@ names = [m.name for m in pkgutil.walk_packages(go_ibft_tpu_torch.__path__, "go_i
 for name in names:
     importlib.import_module(name)
 leaked = sorted(k for k in sys.modules if k == "go_ibft_tpu" or k.startswith("go_ibft_tpu."))
-print(len(names), leaked)
 assert not leaked, leaked
 assert sys.modules["jax"] is None
+print(" ".join(names))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    count, leaked = out.stdout.split(" ", 1)
-    assert int(count) >= 40 and leaked.strip() == "[]"
+    names = set(out.stdout.split())
+    assert len(names) >= 50
+    assert set(CHAIN_SLICE_MODULES) <= names, set(CHAIN_SLICE_MODULES) - names
+
+
+def test_port_chaos_loads_no_clients_module():
+    """``go_ibft_tpu_torch.chaos`` leaves out the JAX package's serve-plane
+    ``clients``: importing it, with JAX blocked, loads no such module."""
+    root = Path(__file__).resolve().parent.parent
+    code = """
+import sys
+sys.modules["jax"] = None
+import go_ibft_tpu_torch.chaos
+print(sorted(k for k in sys.modules if k.endswith(".clients") or k.endswith("chaos.clients")))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    assert not (root / "go_ibft_tpu_torch" / "chaos" / "clients.py").exists()
+
+
+@pytest.mark.cuda
+def test_three_threads_through_one_verifier_on_card(cuda_device):
+    """Three threads, each with its own height's 16-validator round (30 %
+    corrupted), call ``verify_senders`` and ``verify_seal_lanes`` 50 times
+    through one ``DeviceBatchVerifier`` whose per-height caches hold two
+    heights: every mask equals the expected mask, and the masks equal the
+    host verifier's."""
+    from go_ibft_tpu_torch.bench.chain import concurrent_drains
+    from go_ibft_tpu_torch.verify import HostBatchVerifier
+
+    rounds = [build_signed_round(16, height=h, corrupt_frac=0.3, seed=h) for h in (1, 2, 3)]
+    powers = {rnd.height: {m.sender: 1 for m in rnd.prepares} for rnd in rounds}
+    host = HostBatchVerifier(lambda h: powers[h])
+    for rnd in rounds:
+        assert np.array_equal(host.verify_senders(rnd.prepares), rnd.expected_prepare_mask)
+        lanes = [(rnd.proposal_hash, seal) for seal in rnd.seals]
+        assert np.array_equal(host.verify_seal_lanes(lanes, rnd.height), rnd.expected_seal_mask)
+    card = DeviceBatchVerifier(lambda h: powers[h], cache_heights=2)
+    before = ecrecover.recover.launches
+    assert concurrent_drains(card, rounds) == 300
+    assert ecrecover.recover.launches - before == 300  # one recovery launch a call
