@@ -61,11 +61,32 @@ Phases, in order (any failure exits non-zero and prints no result):
    kernels held bit-exact against their plain versions on the first inputs
    of each shape these runs uploaded.  Any fallback, fault, dropped
    speculation lane or finalized seal the oracle rejects fails the run;
-10. print the ``kernels`` line (each kernel's ``ms`` is CUDA events over
+10. BLS12-381 on the card (:func:`bls_phase`): the three pairing kernels
+   (``bls_merge``, ``bls_miller``, ``bls_final_exp``,
+   ``csrc/bls12_381.cu``) held bit-exact against their plain versions (the
+   merge launched on G1 and G2 at 2, 8, 128 and 1,024 points x 1, 7 and 64
+   groups with cancelling, duplicated, negated and dead lanes, each shape's
+   first three groups against the plain version and every group of up to 8
+   points against the host oracle; the Miller loops at 2 and 64 lanes; the
+   final exponentiation at 1 and 64), a few lanes also against
+   ``crypto.bls`` (the pairing ratio cubed); config #4 (one
+   100-validator aggregate COMMIT check: verdict, median of 20 calls, one
+   host-oracle call, a profiled call); config #9's Byzantine mix (100
+   seals, 1 and 5 corrupted) through ``BLSAggregateVerifier``; config
+   #13's 64 certificates through ``BLSCertifier.verify_many`` against the
+   per-certificate loop, a relabeled and a bit-flipped one rejected, and
+   the kernels at 64 and 1,024 lanes; a chain of ``HybridBLSBackend``
+   engines (16 validators, 8 heights) whose ``ChainRunner`` writes a
+   certificate record a height (WAL fsync on), then ``recover()``, a sync
+   of the 8 heights in one ``verify_many`` and a relabeled certificate
+   rejected.  Any fallback or verdict that differs from the oracle fails;
+11. print the ``kernels`` line (each kernel's ``ms`` is CUDA events over
    back-to-back launches; ``device_ms_per_launch`` its time on the card per
-   launch, from the profiler; ``launches`` phase 4's count, ``engine_launches``
-   engine run A's over its 5 heights, ``chain_launches`` chain run F's over
-   its 32), then the result line.
+   launch, from the profiler; ``launches`` phase 4's count (config #4's for
+   the BLS kernels), ``engine_launches`` engine run A's over its 5 heights,
+   ``chain_launches`` chain run F's over its 32, ``bls_launches`` one
+   config-#4 call's and ``bls_chain_launches_per_height`` phase 10's chain's),
+   then the result line.
 
 ``--digest-only`` runs none of this: it times ``ops.quorum.digest_words``
 and the recovery kernel of whichever ``go_ibft_tpu_torch`` comes first on
@@ -89,10 +110,15 @@ import time
 
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the 32-bit rate
-# outside the tensor cores, used here for the kernel's 32-bit integer ops.
+# H100 SXM peaks: HBM bandwidth (NVIDIA data sheet), and the rate of 32-bit
+# integer operations, which every kernel here is made of: 64 results per
+# clock per SM for a 32-bit integer add, multiply-add, shift or logic
+# operation on compute capability 9.0 (the CUDA C++ Programming Guide's
+# arithmetic-instruction throughput table; FP32 has 128, which with an FMA
+# counted as two is the data sheet's 67 TFLOP/s), x 132 SMs x 1.98 GHz (the
+# data sheet's boost clock): 16.7e12 a second.
 HBM_BYTES_PER_S = 3.35e12
-OPS_PER_S_32BIT = 67e12
+OPS_PER_S_32BIT = 64 * 132 * 1.98e9
 
 # Batch sizes held bit-exact: the main path's (payload digests of the 100-
 # and 300-validator rounds: 128 and 512 messages; recovery: 256 and 1024
@@ -206,8 +232,9 @@ def profile_call(fn) -> dict:
         fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels, launches, by_name, count_by_name = 0, 0, {}, {}
+    kernels, launches, by_name, count_by_name, types = 0, 0, {}, {}, {}
     for evt in prof.events():
+        types[str(evt.device_type)] = types.get(str(evt.device_type), 0) + 1
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             kernels += 1
             by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
@@ -221,6 +248,7 @@ def profile_call(fn) -> dict:
         "profiled_wall_ms": wall_ms,
         "by_name_ms": by_name,
         "count_by_name": count_by_name,
+        "events_by_device_type": types,
     }
 
 
@@ -771,6 +799,452 @@ def chain_phase(report: dict, ident: str, counts, holds, held_before: set) -> di
     return chain_launches
 
 
+# -- phase 10: BLS12-381 aggregate verification on the card --------------------
+
+# 32-bit integer operations of one Fp product in the BLS kernels: a 12 x 12
+# word Montgomery product (CIOS) is 144 multiply-adds for the product and
+# 144 for the reduction, each 32 x 32 -> 64 bits, two 32-bit multiply-adds
+# (the low and the high word).
+OPS_BLS_FP_MUL = 2 * 2 * 144
+# Fp products per lane, counted from csrc/bls12_381.cuh (an Fp2 product is
+# 3, an Fp12 product 54): a Miller side's 63 doubling steps (146 each) and
+# 5 addition steps (94 each), two sides and their product; the final
+# exponentiation's easy part (the Fp12 inverse: 112 plus one Fermat inverse
+# of 384 squarings and 191 products) and hard part (five x-powers of 68
+# Fp12 products, and 17 more); a complete addition on G2 (44) or G1 (16),
+# and one affine map (a Fermat inverse and 3 or 2 x 3 products).
+BLS_FERMAT_MULS = 384 + 191
+BLS_MILLER_MULS = 2 * (63 * 146 + 5 * 94) + 54
+BLS_FINAL_EXP_MULS = 112 + BLS_FERMAT_MULS + 54 + 18 + 54 + 5 * 68 * 54 + 54 + 54 + 72 + 126 + 162
+BLS_ADD_MULS = {2: 16, 4: 44}
+BLS_AFFINE_MULS = {2: BLS_FERMAT_MULS + 4, 4: BLS_FERMAT_MULS + 4 + 2 * 3 + 3 * 4}
+BLS_MERGE_V = (2, 8, 128, 1024)
+BLS_MERGE_G = (1, 7, 64)
+BLS_WHERE = {
+    "bls_merge": ("go_ibft_tpu_torch/csrc/bls12_381.cu", "go_ibft_tpu/ops/bls12_381.py:759"),
+    "bls_miller": ("go_ibft_tpu_torch/csrc/bls12_381.cu", "go_ibft_tpu/ops/bls12_381.py:789"),
+    "bls_final_exp": ("go_ibft_tpu_torch/csrc/bls12_381.cu", "go_ibft_tpu/ops/bls12_381.py:809"),
+}
+
+
+def merge_ops(live, coords: int) -> int:
+    """32-bit operations a merge of these groups needs: (live points - 1)
+    complete additions and one affine map per group."""
+    per_group = [max(int(n) - 1, 0) * BLS_ADD_MULS[coords] + BLS_AFFINE_MULS[coords]
+                 for n in live.sum(dim=-1).tolist()]
+    return sum(per_group) * OPS_BLS_FP_MUL
+
+
+def bls_phase(report: dict, ident: str, counts, dev=None, small: bool = False) -> dict:
+    """Phase 10: BLS12-381 aggregate verification on the card.
+
+    Holds the three pairing kernels bit-exact against their plain versions
+    (and a few lanes against the host oracle, the pairing cubed), then
+    drives config #4 (one 100-validator aggregate COMMIT check), config #9's
+    Byzantine mix through ``BLSAggregateVerifier``, config #13's batch of
+    certificates through ``BLSCertifier.verify_many``, and a chain of
+    ``HybridBLSBackend`` engines whose ``ChainRunner`` finalizes, persists,
+    recovers and syncs certificates.  Launch counts are set to 0 just
+    before each run and read just after.  ``dev``/``small`` let the
+    orchestration run on the CPU at a small size (plain versions, no counts
+    checked).  Returns the kernels line's entries for the three kernels and
+    each kernel's counts per config-#4 call and per chain height."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from go_ibft_tpu_torch.bench import build_bls_round_workload
+    from go_ibft_tpu_torch.bench.bls_workload import _bls_keys
+    from go_ibft_tpu_torch.bench.bls_chain import (
+        BLSChain, BLSCommittee, certificate_batch, relabel_block, tamper,
+    )
+    from go_ibft_tpu_torch.chain import SyncError
+    from go_ibft_tpu_torch.crypto import bls as hbls
+    from go_ibft_tpu_torch.messages.helpers import CommittedSeal
+    from go_ibft_tpu_torch.ops import bls12_381 as ops
+    from go_ibft_tpu_torch.ops import bls_kernels as bk
+    from go_ibft_tpu_torch.utils import metrics
+    from go_ibft_tpu_torch.verify import BLSAggregateVerifier, DeviceBatchVerifier, G2MergeTree, HostBatchVerifier
+    from go_ibft_tpu_torch.verify import aggregate as vagg
+    from go_ibft_tpu_torch.verify.bls import PAIRING_EQS_KEY, encode_seal
+
+    dev = torch.device("cuda") if dev is None else dev
+    card = dev.type == "cuda"
+    reset_counts, read_counts = counts
+    out: dict = {"gpu": ident}
+    err = {"bls_merge": 0, "bls_miller": 0, "bls_final_exp": 0}
+    rng = np.random.default_rng(10)
+    t_phase = time.perf_counter()
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    def same(got, ref, name, what):
+        check(torch.equal(got.cpu(), ref.cpu()), f"{name} kernel == plain, {what}")
+
+    # -- 1. each kernel against its plain version ----------------------------
+    if card:  # does the profiler see the card here? (phase 7's calls did)
+        probe = torch.zeros(2, 12, 12, dtype=torch.int32, device=dev)
+        seen = profile_call(lambda: (probe + 1, bk.launch_final_exp(probe, torch.zeros(2, dtype=torch.bool,
+                                                                                          device=dev))))
+        out["profiler_probe"] = {"device_kernels": seen["device_kernels"], "names": sorted(seen["count_by_name"]),
+                                 "events_by_device_type": seen["events_by_device_type"]}
+        log(f"[10] profiler probe (one torch add, one bls_final_exp launch): {out['profiler_probe']}")
+    pool = {2: [hbls.G1_GEN], 4: [hbls.G2_GEN]}
+    for _ in range(63):
+        pool[2].append(hbls.g1_add(pool[2][-1], hbls.G1_GEN))
+        pool[4].append(hbls.g2_add(pool[4][-1], hbls.G2_GEN))
+    packed = {2: (ops.pack_g1_points(pool[2]), ops.pack_g1_points([hbls.g1_neg(p) for p in pool[2]])),
+              4: (ops.pack_g2_points(pool[4]), ops.pack_g2_points([hbls.g2_neg(p) for p in pool[4]]))}
+
+    def merge_case(coords, g, v):
+        """g groups of v points drawn from the pool (duplicates), a tenth
+        negated, a fifth dead; group 1 all dead, group 0's first two lanes
+        P and -P."""
+        idx = rng.integers(0, 64, size=(g, v))
+        neg = rng.random((g, v)) < 0.1
+        live = rng.random((g, v)) >= 0.2
+        if v >= 2:
+            idx[0, :2] = idx[0, 0]
+            neg[0, :2] = (False, True)
+            live[0, :2] = True
+        if g > 1:
+            live[1] = False
+        pos, negs = packed[coords]
+        pts = np.where(neg[..., None, None], negs[idx], pos[idx])
+        hosts = [[(hbls.g1_neg if coords == 2 else hbls.g2_neg)(pool[coords][i]) if n else pool[coords][i]
+                  for i, n in zip(idx[gi], neg[gi])] for gi in range(g)]
+        return torch.from_numpy(np.ascontiguousarray(pts)), torch.from_numpy(live), hosts
+
+    vs = (2, 8, 128) if small else BLS_MERGE_V
+    gs = (1, 7) if small else BLS_MERGE_G
+    t0 = time.perf_counter()
+    for coords in (2, 4):
+        # The kernel at every (groups, points) shape.  Its plain version
+        # costs seconds a call and grows with groups x points, so it runs on
+        # the first three groups of each shape, batched per point count
+        # below 128 and at 1,024 (padded with dead lanes to the batch's
+        # width: dead lanes change neither the sum nor the plain version's
+        # order of additions); the host oracle takes every group of up to 8
+        # points and single groups.
+        held = {}
+        for v in vs:
+            for g in gs:
+                pts, live, hosts = merge_case(coords, g, v)
+                for neg_y in (False, True) if g == 7 else (False,):
+                    got, inf = bk.merge(pts.to(dev), live.to(dev), neg_y)
+                    width = 128 if v <= 128 else v
+                    held.setdefault((width, neg_y), []).append((g, v, got, inf, pts[:3], live[:3]))
+                    if neg_y:
+                        continue
+                    if v <= 8 or g == 1:  # the host oracle
+                        unpack = ops.unpack_g1_points if coords == 2 else ops.unpack_g2_points
+                        add = hbls.g1_add if coords == 2 else hbls.g2_add
+                        got_pts = unpack(got.cpu(), inf.cpu())
+                        for gi in range(g):
+                            acc = None
+                            for p, alive in zip(hosts[gi], live[gi].tolist()):
+                                if alive:
+                                    acc = add(acc, p)
+                            check(got_pts[gi] == acc, f"bls_merge == host oracle, group {gi} of {g} x {v}")
+        sync()
+        for (width, neg_y), cases in held.items():
+            ref, rinf = ops.merge_plain(
+                torch.cat([torch.nn.functional.pad(pt, (0, 0, 0, 0, 0, width - v)) for _, v, _, _, pt, _ in cases]),
+                torch.cat([torch.nn.functional.pad(lv, (0, width - v)) for _, v, _, _, _, lv in cases]), neg_y)
+            at = 0
+            for g, v, got, inf, pt, _ in cases:
+                k = pt.shape[0]
+                what = f"{'G1' if coords == 2 else 'G2'} {g} x {v}, neg_y {neg_y}, first {k} groups"
+                same(got[:k], ref[at:at + k], "bls_merge", what)
+                same(inf[:k], rinf[at:at + k], "bls_merge", f"infinity flags, {what}")
+                at += k
+    log(f"[10] bls_merge at V={vs} x groups {gs} on G1 and G2 (P + -P, duplicates, negated and dead lanes, an "
+        f"all-dead group; y negated at 7 groups): bit-exact against plain on each shape's first 3 groups, every "
+        f"group of up to 8 points and single groups against the host oracle ({time.perf_counter() - t0:.1f}s)")
+
+    # Miller lanes: lane 0 a valid aggregate (three signers), the rest pool points.
+    msg = b"\x11" * 32
+    hmsg = hbls.hash_to_g2(msg)
+    signers = [hbls.BLSPrivateKey(k) for k in (3, 5, 7)]
+    s_valid = hbls.aggregate_signatures([k.sign(msg) for k in signers])
+    pk_valid = hbls.aggregate_pubkeys([k.pubkey for k in signers])
+    n_lanes = 8 if small else 64
+    lane_s = [s_valid] + [pool[4][int(i)] for i in rng.integers(0, 64, n_lanes - 1)]
+    lane_h = [hmsg] + [pool[4][int(i)] for i in rng.integers(0, 64, n_lanes - 1)]
+    lane_pk = [pk_valid] + [pool[2][int(i)] for i in rng.integers(0, 64, n_lanes - 1)]
+    q64 = torch.from_numpy(np.stack([ops.pack_g2_points(lane_s), ops.pack_g2_points(lane_h)]))
+    p64 = torch.from_numpy(np.stack([ops.pack_g1_points([hbls.G1_GEN] * n_lanes),
+                                     ops.pack_g1_points([hbls.g1_neg(p) for p in lane_pk])]))
+    t0 = time.perf_counter()
+    # The plain versions once at the widest batch; lanes are independent, so
+    # the kernel's narrower launches hold against its leading lanes.
+    f_plain = ops.miller_plain(q64, p64)
+    for n in (2, n_lanes):
+        f = bk.miller(q64[:, :n].contiguous().to(dev), p64[:, :n].contiguous().to(dev))
+        sync()
+        same(f, f_plain[:n], "bls_miller", f"N={n}")
+    f64 = f
+    gate = torch.ones(n_lanes, dtype=torch.bool, device=dev)
+    pok, pres = ops.final_exp_plain(f_plain, gate.cpu())
+    for n in (1, n_lanes):
+        ok, res = bk.final_exp(f64[:n].contiguous(), gate[:n].contiguous())
+        sync()
+        same(ok, pok[:n], "bls_final_exp", f"verdicts, N={n}")
+        same(res, pres[:n], "bls_final_exp", f"results, N={n}")
+    oks = ok.cpu().tolist()
+    check(oks[0] and not any(oks[1:]), "the valid lane verifies, the pool lanes do not")
+    results = ops.unpack_f12(res[:2].cpu())
+    for i in range(2):
+        e = hbls.f12_mul(hbls.pairing(lane_s[i], hbls.G1_GEN), hbls.pairing(lane_h[i], hbls.g1_neg(lane_pk[i])))
+        check(results[i] == hbls.f12_pow(e, 3), f"lane {i}: final_exp(miller) == the host pairing ratio cubed")
+    log(f"[10] bls_miller at N=2, {n_lanes} and bls_final_exp at N=1, {n_lanes} bit-exact against plain; "
+        f"2 lanes == crypto.bls pairing ratio cubed ({time.perf_counter() - t0:.1f}s)")
+
+    # -- 2. config #4: one 100-validator aggregate COMMIT check --------------
+    n_val = 8 if small else 100
+    t0 = time.perf_counter()
+    w = build_bls_round_workload(n_val, seed=0, time_host=True)
+    args = tuple(torch.from_numpy(a).to(dev) for a in w.args)
+    log(f"[10] config #4 workload: {n_val} seals signed, host oracle aggregate_verify {w.host_ms:.1f} ms "
+        f"({time.perf_counter() - t0:.1f}s)")
+    reset_counts()
+    verdict = bool(ops.aggregate_verify_commit(*args))
+    c4 = read_counts()
+    check(verdict, "config #4: the aggregate check on the card is true")
+    if card:
+        check(c4["bls_merge"] == 2 and c4["bls_miller"] == 1 and c4["bls_final_exp"] == 1,
+              f"config #4: two merges, one Miller, one final exponentiation launch ({c4})")
+    bad_sig = w.args[1].copy()
+    bad_sig[0] = bad_sig[1]  # validator 0's seal replaced by validator 1's: false
+    check(not bool(ops.aggregate_verify_commit(args[0], torch.from_numpy(bad_sig).to(dev), args[2], args[3])),
+          "config #4 with one seal replaced by another validator's: false")
+    c4_out = {"verdict": verdict, "launches": c4, "host_oracle_ms": w.host_ms}
+
+    # The kernels at config #4's shapes: events, profiler, plain, bound.
+    pk, sig, h, live = args
+    timing = {}
+    if card:
+        npk, pk_inf = bk.launch_merge(pk.unsqueeze(0), live.unsqueeze(0), True)
+        s, s_inf = bk.launch_merge(sig.unsqueeze(0), live.unsqueeze(0))
+        gen = torch.from_numpy(ops._G1_GEN).to(dev).unsqueeze(0)
+        q1 = torch.stack([s, h.unsqueeze(0)]).contiguous()
+        p1 = torch.stack([gen, npk]).contiguous()
+        f1 = bk.launch_miller(q1, p1)
+        g1 = ~pk_inf & ~s_inf
+        prof = profile_call(lambda: (bk.launch_merge(sig.unsqueeze(0), live.unsqueeze(0)), bk.launch_miller(q1, p1),
+                                     bk.launch_final_exp(f1, g1)))
+        lv = live.unsqueeze(0).cpu()
+        timing["bls_merge"] = {
+            "shape": f"G2 1 x {sig.shape[0]}",
+            "ms": cuda_time_ms(lambda: bk.launch_merge(sig.unsqueeze(0), live.unsqueeze(0)), 10),
+            "plain_ms": cuda_time_ms(lambda: ops.merge_plain(sig.unsqueeze(0), live.unsqueeze(0)), 1),
+            "g1_ms": cuda_time_ms(lambda: bk.launch_merge(pk.unsqueeze(0), live.unsqueeze(0), True), 10),
+            **bound(sig.numel() * 4 + live.numel() + 4 * 12 * 4 + 1, merge_ops(lv, 4)),
+        }
+        timing["bls_miller"] = {
+            "shape": "N=1",
+            "ms": cuda_time_ms(lambda: bk.launch_miller(q1, p1), 5),
+            "plain_ms": cuda_time_ms(lambda: ops.miller_plain(q1, p1), 1),
+            **bound(q1.numel() * 4 + p1.numel() * 4 + 144 * 4, BLS_MILLER_MULS * OPS_BLS_FP_MUL),
+        }
+        timing["bls_final_exp"] = {
+            "shape": "N=1",
+            "ms": cuda_time_ms(lambda: bk.launch_final_exp(f1, g1), 5),
+            "plain_ms": cuda_time_ms(lambda: ops.final_exp_plain(f1, g1), 1),
+            **bound(144 * 4 + 1 + 1 + 144 * 4, BLS_FINAL_EXP_MULS * OPS_BLS_FP_MUL),
+        }
+        for name, t in timing.items():
+            names = [k for k in prof["count_by_name"] if name in k]
+            # The profiler's time per launch where it recorded the kernel,
+            # else None (the events' time stands).
+            t["device_ms_per_launch"] = per_launch_ms(prof, name) if names else None
+            on_card = f" ({t['device_ms_per_launch'] * 1e3:.1f} us on the card)" if names else " (profiler: not recorded)"
+            log(f"[10] {name} at config #4's {t['shape']}: kernel {t['ms']:.4f} ms{on_card}, plain "
+                f"{t['plain_ms']:.1f} ms, bound {t['bound_ms']:.3g} ms ({t['bound_by']})")
+
+        host_ms, event_ms = median_ms(lambda: bool(ops.aggregate_verify_commit(*args)), calls=20)
+        prof = profile_call(lambda: bool(ops.aggregate_verify_commit(*args)))
+        prof["top_kernels_ms"] = sorted(prof.pop("by_name_ms").items(), key=lambda kv: -kv[1])[:6]
+        prof.pop("count_by_name")
+        if prof["device_kernels"]:
+            busy, source = prof["device_busy_ms"], "profiler"
+        else:  # the profiler saw no device activity: the four launches' event times
+            busy = timing["bls_merge"]["ms"] + timing["bls_merge"]["g1_ms"] + timing["bls_miller"]["ms"] \
+                + timing["bls_final_exp"]["ms"]
+            source = "CUDA events of the four launches (the profiler recorded no device activity)"
+        prof.update(device_busy_ms=busy, busy_source=source, idle_share_vs_median=1 - busy / host_ms)
+        c4_out.update(median_host_ms=host_ms, median_event_ms=event_ms, profile=prof)
+        log(f"[10] config #4 (100 validators): verdict true; median of 20 {host_ms:.3f} ms host / {event_ms:.3f} ms "
+            f"events vs the host oracle's {w.host_ms:.1f} ms; profile: {prof['device_kernels']} kernels, "
+            f"{prof['launch_calls']} launch calls, device busy {busy:.3f} ms ({source}), idle "
+            f"{prof['idle_share_vs_median']:.3f}")
+        for name, ms in prof["top_kernels_ms"]:
+            log(f"    {ms:9.4f} ms  {name[:90]}")
+    out["config4"] = c4_out
+    out["kernel_timing"] = timing
+
+    # -- 3. config #9: the Byzantine mix through BLSAggregateVerifier --------
+    addrs = [i.to_bytes(20, "big") for i in range(n_val)]
+    keys = {a: pkey for a, pkey in zip(addrs, w.pubkeys)}
+    verifier = BLSAggregateVerifier(lambda _h: keys, torch_device=dev)
+    bls_keys = _bls_keys(n_val, 0)
+    wrong = (b"byzantine" + w.message)[:32]
+    c9 = {}
+    for nbad in (1, 5):
+        bad_set = set(list(dict.fromkeys(i % n_val for i in (17, 3, 42, 66, 91)))[:nbad])
+        seals = [CommittedSeal(addrs[i], encode_seal(w.sigs[i])) for i in range(n_val)]
+        for i in bad_set:
+            seals[i] = CommittedSeal(addrs[i], encode_seal(bls_keys[i].sign(wrong)))
+        eq0 = metrics.get_counter(PAIRING_EQS_KEY)
+        t0 = time.perf_counter()
+        mask = verifier.verify_committed_seals(w.message, seals, 1)
+        dt = time.perf_counter() - t0
+        eqs = metrics.get_counter(PAIRING_EQS_KEY) - eq0
+        expected = np.array([i not in bad_set for i in range(n_val)])
+        check(np.array_equal(mask, expected), f"config #9, {nbad} corrupted: the mask == the construction's")
+        c9[nbad] = {"pairing_equations": eqs, "wall_ms": dt * 1e3}
+    for i in sorted(bad_set)[:2]:  # the host oracle on corrupted lanes
+        check(not hbls.verify(w.pubkeys[i], w.message, bls_keys[i].sign(wrong)),
+              f"config #9: corrupted seal {i} fails the host oracle")
+    out["config9"] = c9
+    log(f"[10] config #9 ({n_val} seals): masks == construction with 1 and 5 corrupted; pairing equations "
+        f"{c9[1]['pairing_equations']} and {c9[5]['pairing_equations']} ({c9[1]['wall_ms']:.0f} and "
+        f"{c9[5]['wall_ms']:.0f} ms)")
+
+    # -- 4. config #13: 64 certificates of a 4-validator committee -----------
+    n_certs = 8 if small else 64
+    c13 = BLSCommittee(4, seed=13)
+    certifier = c13.certifier(device=True, torch_device=dev)
+    t0 = time.perf_counter()
+    certs = tamper(certificate_batch(c13, c13.certifier(), n_certs))
+    log(f"[10] config #13: {n_certs} certificates built ({time.perf_counter() - t0:.1f}s)")
+    reset_counts()
+    t0 = time.perf_counter()
+    batched = certifier.verify_many(certs)
+    batched_ms = (time.perf_counter() - t0) * 1e3
+    c13_counts = read_counts()
+    t0 = time.perf_counter()
+    loop = np.array([certifier.verify(c) for c in certs])
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    expected = np.array([False, False] + [True] * (n_certs - 2))
+    check(np.array_equal(batched, expected) and np.array_equal(loop, expected),
+          "config #13: batched and per-certificate verdicts == expected (relabeled and bit-flipped rejected)")
+    if card:
+        check(c13_counts["bls_merge"] == 1 and c13_counts["bls_miller"] == 1 and c13_counts["bls_final_exp"] == 1,
+              f"config #13: one launch of each kernel for the batch ({c13_counts})")
+    c13_out = {"batched_ms": batched_ms, "per_cert_loop_ms": loop_ms, "launches": c13_counts}
+    lanes = [certifier._lane_of(c) for c in certs[2:]]
+    if card:
+        for reps in (1, 16):
+            many = lanes * reps
+            vargs, live_idx = vagg._pack_lanes_device(many, dev)
+            sg, hh, pkk, pkl, ll = vargs
+            npk, pinf = bk.launch_merge(pkk, pkl, True)
+            n = sg.shape[0]
+            genn = torch.from_numpy(ops._G1_GEN).to(dev).expand(n, 2, 12)
+            qn = torch.stack([sg, hh]).contiguous()
+            pn = torch.stack([genn, npk]).contiguous()
+            fn = bk.launch_miller(qn, pn)
+            gn = ~pinf & ll
+            row = {
+                "lanes": n,
+                "multi_aggregate_check_ms": median_ms(
+                    lambda many=many: vagg.multi_aggregate_check(many, route="device", torch_device=dev), 3)[0],
+                "bls_merge_ms": cuda_time_ms(lambda: bk.launch_merge(pkk, pkl, True), 5),
+                "bls_miller_ms": cuda_time_ms(lambda: bk.launch_miller(qn, pn), 3),
+                "bls_final_exp_ms": cuda_time_ms(lambda: bk.launch_final_exp(fn, gn), 3),
+                "bls_miller_bound": bound(qn.numel() * 4 + pn.numel() * 4 + n * 144 * 4,
+                                          n * BLS_MILLER_MULS * OPS_BLS_FP_MUL),
+                "bls_final_exp_bound": bound(n * (144 * 4 * 2 + 2), n * BLS_FINAL_EXP_MULS * OPS_BLS_FP_MUL),
+            }
+            c13_out[f"lanes_{n}"] = row
+            log(f"[10] config #13 at {n} lanes: multi_aggregate_check {row['multi_aggregate_check_ms']:.2f} ms; "
+                f"merge {row['bls_merge_ms']:.3f}, miller {row['bls_miller_ms']:.3f}, final_exp "
+                f"{row['bls_final_exp_ms']:.3f} ms (events)")
+    out["config13"] = c13_out
+    log(f"[10] config #13: verify_many {batched_ms:.1f} ms in one batch ({c13_counts}) against the "
+        f"per-certificate loop's {loop_ms:.1f} ms, verdicts equal")
+
+    # -- 5. a chain with certificates ------------------------------------------
+    n_chain, heights = (4, 2) if small else (16, 8)
+    committee = BLSCommittee(n_chain, seed=0)
+    me = next(i for i in range(n_chain) if all(committee.proposer(hh) != i for hh in range(1, heights + 1)))
+    t0 = time.perf_counter()
+    schedules = {hh: committee.schedule(hh) for hh in range(1, heights + 1)}
+    log(f"[10] chain: {n_chain} validators x {heights} heights signed ({time.perf_counter() - t0:.1f}s)")
+    tmp = tempfile.mkdtemp(prefix="bls_chain_")
+    merger = G2MergeTree(torch_device=dev, cutover_points=1)
+    chain_certifier = committee.certifier(device=True, aggregator=merger, torch_device=dev)
+    senders = DeviceBatchVerifier(committee.src, device=dev)
+    seal_verifier = BLSAggregateVerifier(committee.bls_src, torch_device=dev)
+    chain = BLSChain(committee, me, senders, seal_verifier, chain_certifier, os.path.join(tmp, "wal.jsonl"))
+    reset_counts()
+    t0 = time.perf_counter()
+    runner = chain.run(heights, schedules)
+    chain_s = time.perf_counter() - t0
+    chain_counts = read_counts()
+    blocks = list(runner.chain)
+    check(runner.height == heights + 1 and len(blocks) == heights, f"the chain finalized {heights} heights")
+    check(all(b.cert is not None and not b.seals for b in blocks), "every finalized height carries a certificate")
+    with open(os.path.join(tmp, "wal.jsonl")) as fh:
+        recs = [json.loads(line) for line in fh if '"finalize"' in line]
+    check(len(recs) == heights and all("cert" in r for r in recs), "the WAL holds a certificate record a height")
+    check(merger.faults == 0 and merger.device_merges >= heights, f"certificates merged on the card ({merger.stats()})")
+    if card:
+        for name in ("bls_merge", "bls_miller", "bls_final_exp"):
+            check(chain_counts[name] > 0, f"the chain launched {name}")
+    resumed, replayed = chain.recover()
+    check(resumed == heights + 1 and [b.cert for b in replayed] == [b.cert for b in blocks],
+          "a fresh runner's recover() reads the certificates back")
+    reset_counts()
+    t0 = time.perf_counter()
+    synced = chain.sync(blocks, HostBatchVerifier(committee.src))
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    sync_counts = read_counts()
+    check([b.height for b in synced] == list(range(1, heights + 1)), "a fresh node synced every height")
+    if card:
+        check(sync_counts["bls_miller"] == 1 and sync_counts["bls_final_exp"] == 1,
+              f"the sync verified the range in one verify_many ({sync_counts})")
+    try:
+        chain.sync(blocks[:-1] + [relabel_block(blocks[-1])], HostBatchVerifier(committee.src))
+        check(False, "a certificate for another proposal hash is rejected")
+    except SyncError as e:
+        rejected = str(e)
+    shutil.rmtree(tmp, ignore_errors=True)
+    out["chain"] = {"validators": n_chain, "heights": heights, "wall_s": chain_s,
+                    "launches_per_height": {k: v / heights for k, v in chain_counts.items()},
+                    "sync_ms": sync_ms, "sync_launches": sync_counts, "rejected": rejected}
+    log(f"[10] chain: {heights} heights of {n_chain} validators in {chain_s:.2f} s, a certificate record "
+        f"each (WAL fsync on); recover() resumes at {resumed}; sync of {heights} heights in one verify_many "
+        f"({sync_ms:.1f} ms, {sync_counts}); relabeled certificate rejected: {rejected!r}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[10] phase 10 took {out['phase_s']:.1f}s")
+    report["bls"] = out
+    kernels = []
+    for name in ("bls_merge", "bls_miller", "bls_final_exp"):
+        t = timing.get(name, {})
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": BLS_WHERE[name][0],
+            "replaces": BLS_WHERE[name][1],
+            "launches": c4[name],
+            "chain_launches_per_height": chain_counts[name] / heights,
+            "config13_launches": c13_counts[name],
+            "max_abs_err": err[name],
+            "ms": t.get("ms"),
+            "device_ms_per_launch": t.get("device_ms_per_launch"),
+            "plain_ms": t.get("plain_ms"),
+            "bound_ms": t.get("bound_ms"),
+            "bound_by": t.get("bound_by"),
+            "library_ms": None,
+        })
+    return {"kernels": kernels, "config4": c4, "chain_per_height": {k: v / heights for k, v in chain_counts.items()}}
+
+
 def digest_only() -> int:
     """Time ``ops.quorum.digest_words`` and the recovery kernel of the
     ``go_ibft_tpu_torch`` first on the import path.  To compare checkouts,
@@ -838,7 +1312,7 @@ def main() -> int:
     from go_ibft_tpu_torch.crypto import ecdsa
     from go_ibft_tpu_torch.crypto.backend import ECDSABackend
     from go_ibft_tpu_torch.crypto.keccak import keccak256
-    from go_ibft_tpu_torch.ops import ecrecover, keccak_f1600, quorum
+    from go_ibft_tpu_torch.ops import bls_kernels, ecrecover, keccak_f1600, quorum
     from go_ibft_tpu_torch.ops import fields as tf
     from go_ibft_tpu_torch.ops import keccak as tk
     from go_ibft_tpu_torch.verify import DeviceBatchVerifier
@@ -960,6 +1434,9 @@ def main() -> int:
         "keccak_f1600": (tk.keccak_f,),
         "keccak256_digest": (quorum.digest_words, tk.keccak256_blocks),
         "secp256k1_recover": (ecrecover.recover,),
+        "bls_merge": (bls_kernels.merge,),
+        "bls_miller": (bls_kernels.miller,),
+        "bls_final_exp": (bls_kernels.final_exp,),
     }
 
     def reset_counts():
@@ -1145,7 +1622,10 @@ def main() -> int:
     chain_launches = chain_phase(report, ident, (reset_counts, read_counts),
                                  (hold_digest, hold_recovery), held)
 
-    # -- 10. the kernels line and the result ---------------------------
+    # -- 10. BLS12-381 aggregate verification on the card -------------
+    bls = bls_phase(report, ident, (reset_counts, read_counts))
+
+    # -- 11. the kernels line and the result ---------------------------
     main = {"keccak_f1600": timing["keccak_f1600"][256],  # PR 1's main-path size
             "keccak256_digest": timing["keccak256_digest"]["100v"],
             "secp256k1_recover": timing["secp256k1_recover"]["100v"]}
@@ -1168,6 +1648,8 @@ def main() -> int:
         "launches": launches[name],
         "engine_launches": engine_launches[name],
         "chain_launches": chain_launches[name],
+        "bls_launches": bls["config4"][name],
+        "bls_chain_launches_per_height": bls["chain_per_height"][name],
         "max_abs_err": err[name],
         "ms": main[name]["ms"],
         "device_ms_per_launch": main[name]["device_ms_per_launch"],
@@ -1175,7 +1657,12 @@ def main() -> int:
         "bound_ms": main[name]["bound_ms"],
         "bound_by": main[name]["bound_by"],
         "library_ms": None,
-    } for name in counters]
+    } for name in main]
+    for entry in bls["kernels"]:
+        entry.update(engine_launches=engine_launches[entry["name"]], chain_launches=chain_launches[entry["name"]],
+                     bls_launches=entry["launches"],
+                     bls_chain_launches_per_height=entry.pop("chain_launches_per_height"))
+        kernels.append(entry)
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start
     if args.json:

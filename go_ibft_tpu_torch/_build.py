@@ -42,6 +42,14 @@ SIGNATURES = {
             [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P], ctypes.c_int
         ),
     },
+    "bls12_381": {
+        "bls_merge": (
+            [_P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P],
+            ctypes.c_int,
+        ),
+        "bls_miller": ([_P, _P, ctypes.c_longlong, _P, _P], ctypes.c_int),
+        "bls_final_exp": ([_P, _P, ctypes.c_longlong, _P, _P, _P], ctypes.c_int),
+    },
     "secp256k1_recover": {
         "secp256k1_recover": (
             [_P, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P],

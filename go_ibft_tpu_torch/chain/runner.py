@@ -36,10 +36,12 @@ Two differences from the JAX package.  On the card
 (:func:`~go_ibft_tpu_torch.verify.batch.on_card` of the engine's verifier)
 a fault of the overlap worker's drain ends :meth:`ChainRunner.run` with
 that fault instead of re-verifying the batch on the host; off the card the
-JAX behaviour stays.  And the hooks whose modules the port does not have
-yet raise :class:`~go_ibft_tpu_torch.chain.wal.NotPortedError` naming the
-slice they wait for: ``certifier=`` and ``checkpointer=`` (BLS and
-serving) and :meth:`ChainRunner.warm_start` (boot).
+JAX behaviour stays; so does a certifier's fault on the card, which ends
+:meth:`ChainRunner.run` instead of falling back to a per-seal finalize
+record.  And the hooks whose modules the port does not have yet raise
+:class:`~go_ibft_tpu_torch.chain.wal.NotPortedError` naming the slice they
+wait for: ``checkpointer=`` (serving) and :meth:`ChainRunner.warm_start`
+(boot).
 """
 
 from __future__ import annotations
@@ -57,13 +59,23 @@ from ..obs import trace
 from ..utils import metrics
 from ..verify.batch import on_card
 from .sync import SyncClient, SyncError
-from .wal import CERT_NOT_PORTED, CHECKPOINT_NOT_PORTED, FinalizedBlock, NotPortedError, WriteAheadLog
+from .wal import CHECKPOINT_NOT_PORTED, FinalizedBlock, NotPortedError, WriteAheadLog
 
 __all__ = ["ChainRunner", "HANDOFF_MS_KEY", "HEIGHT_MS_KEY", "OVERLAP_LANES_KEY"]
 
 HANDOFF_MS_KEY = ("go-ibft", "chain", "handoff_ms")
 HEIGHT_MS_KEY = ("go-ibft", "chain", "height_ms")
 OVERLAP_LANES_KEY = ("go-ibft", "chain", "overlap_lanes")
+
+
+def _certifier_on_card(certifier) -> bool:
+    """Whether a certifier's device routes (its own pairing route, its
+    merge tree, its multi-pairing verifier) run on the card."""
+    return any(
+        on_card(c)
+        for c in (certifier, getattr(certifier, "_aggregator", None), getattr(certifier, "_multipair", None))
+        if c is not None
+    )
 
 
 class ChainRunner:
@@ -96,10 +108,16 @@ class ChainRunner:
         self.engine = engine
         self.wal = wal
         self.sync = sync
-        # Aggregate-COMMIT compression and epoch checkpoints wait for the
-        # BLS and serving slices.
-        if certifier is not None:
-            raise NotPortedError(CERT_NOT_PORTED)
+        # Aggregate-COMMIT compression: a certifier (a
+        # :class:`~go_ibft_tpu_torch.crypto.quorum_cert.BLSCertifier`) makes
+        # every finalize record O(1) — a height the engine finalized from
+        # an aggregate certificate persists that certificate verbatim;
+        # one finalized per-seal is compressed into a certificate at
+        # persist time (no pairing: the seals were verified when the
+        # quorum formed).  Peers then serve certificate blocks and the
+        # sync client re-verifies each height with ONE pairing.
+        self.certifier = certifier
+        # Epoch checkpoints wait for the serving slice.
         if checkpointer is not None:
             raise NotPortedError(CHECKPOINT_NOT_PORTED)
         # Speculative verification plane: attaching a
@@ -211,11 +229,39 @@ class ChainRunner:
     def _on_finalize(
         self, height: int, proposal: Proposal, seals: List[CommittedSeal]
     ) -> None:
-        # A height the engine finalized from an aggregate certificate
-        # persists that certificate (the WAL raises NotPortedError for
-        # it until the BLS slice): its seal list is a synthetic sentinel
-        # no peer's seal-lane verify could accept.
+        # Prefer the certificate that actually finalized the height
+        # (tree-gossip mode) — REGARDLESS of whether this runner carries a
+        # certifier: a cert-finalized height's seal list is the synthetic
+        # AGG_CERT_SIGNER sentinel, and persisting/serving that as a real
+        # seal would hand peers a block their seal-lane verify can never
+        # accept.  Persisting the cert itself needs no certifier.
         cert = getattr(self.engine, "finalized_certificate", None)
+        if self.certifier is not None:
+            # Otherwise compress the verified seal quorum into one.  A
+            # failed build (e.g. ECDSA seals a BLS certifier cannot
+            # decode) falls back to per-seal evidence — never a lossy
+            # record — except on the card, where the fault is the
+            # kernel's and ends run() (on_finalize is not guarded).
+            if cert is None:
+                try:
+                    from ..crypto.backend import proposal_hash_of
+
+                    cert = self.certifier.build(
+                        height, proposal.round, proposal_hash_of(proposal), seals
+                    )
+                except Exception as err:  # noqa: BLE001 - keep per-seal
+                    if _certifier_on_card(self.certifier):
+                        raise
+                    # SAY so: a persistently mis-wired certifier silently
+                    # producing O(N) records forever is an operations bug
+                    # nobody would otherwise see.
+                    self.engine.log.error(
+                        "certifier failed; falling back to per-seal "
+                        "finalize record",
+                        height,
+                        err,
+                    )
+                    cert = None
         stored_seals = [] if cert is not None else list(seals)
         if self.wal is not None:
             self.wal.append_finalize(height, proposal, stored_seals, cert=cert)

@@ -31,12 +31,13 @@ refuses interior corruption — a damaged middle record means the file is
 not the log this code wrote, and silently skipping it could resurrect an
 equivocation.
 
-Two record forms of the JAX package are not ported yet, and each raises
+One record form of the JAX package is not ported yet, and raises
 :class:`NotPortedError` naming the slice it waits for, on append and on
-replay: a finalize record carrying an aggregate quorum certificate (it
-needs ``crypto.quorum_cert``, the BLS slice) and an epoch ``checkpoint``
-record (it needs ``lightsync``, the serving slice).  Replay never takes
-such a record for a torn tail: it raises, and the file is left as it is.
+replay: an epoch ``checkpoint`` record (it needs ``lightsync``, the
+serving slice).  Replay never takes such a record for a torn tail: it
+raises, and the file is left as it is.  Finalize records carrying an
+aggregate quorum certificate (:mod:`go_ibft_tpu_torch.crypto.quorum_cert`)
+are written and replayed as the JAX package does.
 """
 
 from __future__ import annotations
@@ -75,10 +76,6 @@ class NotPortedError(NotImplementedError):
     names the module and the slice that brings it."""
 
 
-CERT_NOT_PORTED = (
-    "aggregate quorum certificates are not ported: they need "
-    "crypto.quorum_cert, which comes with the BLS slice"
-)
 CHECKPOINT_NOT_PORTED = (
     "checkpoint records are not ported: they need lightsync, which comes "
     "with the serving slice"
@@ -89,9 +86,8 @@ CHECKPOINT_NOT_PORTED = (
 class FinalizedBlock:
     """One durable chain entry: what ``InsertProposal`` received.
 
-    ``cert`` (an ``AggregateQuorumCertificate`` of the JAX package's
-    ``crypto.quorum_cert``, not ported yet) is the O(1) alternative to
-    ``seals``: a
+    ``cert`` (an :class:`~go_ibft_tpu_torch.crypto.quorum_cert.
+    AggregateQuorumCertificate`) is the O(1) alternative to ``seals``: a
     block finalized — or compressed at persist time — under the
     aggregate-COMMIT mode carries ONE aggregated G2 seal plus a signer
     bitmap instead of N individual seals, and every consumer (WAL replay,
@@ -205,17 +201,24 @@ class WriteAheadLog:
     ) -> None:
         """Durably record one finalized height (fsync before returning).
 
-        ``cert`` (an aggregate quorum certificate) is not ported: a
-        certificate raises :class:`NotPortedError` and nothing is written.
+        ``cert`` (an AggregateQuorumCertificate) replaces the per-seal
+        list on disk: the finalize record becomes O(1) in committee size
+        — 240 bytes + 1 bitmap bit per validator instead of one 192-byte
+        seal each — and replay hands the certificate back for one-pairing
+        re-verification instead of N seal lanes.
         """
-        if cert is not None:
-            raise NotPortedError(CERT_NOT_PORTED)
         record = {
             "kind": "finalize",
             "height": height,
             "proposal": proposal.encode().hex(),
         }
-        record["seals"] = [[s.signer.hex(), s.signature.hex()] for s in seals]
+        if cert is not None:
+            record["cert"] = cert.encode().hex()
+        record["seals"] = (
+            []
+            if cert is not None
+            else [[s.signer.hex(), s.signature.hex()] for s in seals]
+        )
         self._append(record, fsync=True)
 
     def append_lock(
@@ -243,8 +246,16 @@ class WriteAheadLog:
     def _parse(record: dict):
         kind = record["kind"]
         if kind == "finalize":
-            if record.get("cert") is not None:
-                raise NotPortedError(CERT_NOT_PORTED)
+            cert_hex = record.get("cert")
+            cert = None
+            if cert_hex is not None:
+                # Lazy import: the certificate codec pulls the BLS stack,
+                # which plain ECDSA-seal WALs never need.
+                from ..crypto.quorum_cert import AggregateQuorumCertificate
+
+                cert = AggregateQuorumCertificate.decode(
+                    bytes.fromhex(cert_hex)
+                )
             return FinalizedBlock(
                 height=int(record["height"]),
                 proposal=Proposal.decode(bytes.fromhex(record["proposal"])),
@@ -255,6 +266,7 @@ class WriteAheadLog:
                     )
                     for signer, signature in record.get("seals", ())
                 ],
+                cert=cert,
             )
         if kind == "lock":
             pc_hex = record.get("pc")

@@ -22,10 +22,17 @@
 
 All return identical boolean masks for identical inputs, and every one
 serves ``verify_seals_early_exit``, a seal drain that stops at the exact
-voting-power quorum (:class:`EarlyExitReport`).  The JAX package's mesh
-verifier and BLS aggregation are not ported yet.
+voting-power quorum (:class:`EarlyExitReport`).
+
+BLS12-381 aggregate seals: :class:`BLSAggregateVerifier` (one pairing
+equation a quorum, bisection of a failing one), :class:`G2MergeTree` and
+:func:`multi_aggregate_check` / :class:`MultiPairVerifier` (many
+certificate equations in one batch), on the card through the pairing
+kernels, with no host fallback there.  The JAX package's mesh verifier is
+not ported yet.
 """
 
+from .aggregate import G2MergeTree, MultiPairVerifier, multi_aggregate_check
 from .batch import (
     SIG_BYTES,
     AdaptiveBatchVerifier,
@@ -41,22 +48,27 @@ from .batch import (
     split_signature,
 )
 from .pipeline import CircuitBreaker, PackCache, VerifyPipeline
+from .bls import BLSAggregateVerifier
 from .speculate import SpeculationCache, SpeculativeVerifier
 
 __all__ = [
     "AdaptiveBatchVerifier",
+    "BLSAggregateVerifier",
     "CircuitBreaker",
     "DeviceBatchVerifier",
     "EarlyExitReport",
     "EngineScope",
+    "G2MergeTree",
     "HostBatchVerifier",
     "MalformedLaneError",
+    "MultiPairVerifier",
     "PackCache",
     "ResilientBatchVerifier",
     "SIG_BYTES",
     "SpeculationCache",
     "SpeculativeVerifier",
     "VerifyPipeline",
+    "multi_aggregate_check",
     "pack_seal_batch",
     "pack_sender_batch",
     "pack_validator_table",

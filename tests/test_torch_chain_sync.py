@@ -8,9 +8,9 @@ masks, the blocks a catch-up returns, its drain count and every
 ``tests/test_chain_sync.py`` in virtual time (``test_torch_chain``'s
 harness): a stranded node catches up through one batched drain, and a node
 killed right after its WAL lock append restarts through ``recover()`` with
-the lock and rejoins the same chain as in the JAX package.  The hooks whose
-modules the port does not have yet raise ``NotPortedError`` with the slice
-they wait for.
+the lock and rejoins the same chain as in the JAX package.  The certificate
+hooks take the working route; the hooks whose modules the port does not
+have yet raise ``NotPortedError`` with the slice they wait for.
 """
 
 import asyncio
@@ -200,7 +200,7 @@ def test_validator_set_change_mid_range_matches_jax(rotated_quorum_fails):
 
 
 class _Stub:
-    """Stands in for a certificate or checkpoint record of the JAX package."""
+    """Stands in for a checkpoint record of the JAX package."""
 
     epoch, height = 1, 8
 
@@ -209,31 +209,48 @@ class _Stub:
 
 
 def test_certificate_hooks_raise_not_ported(tmp_path):
-    from go_ibft_tpu_torch.chain import NotPortedError
+    """The certificate hooks this test pinned as not ported while the BLS
+    slice was missing now take the working route, as in the JAX package: a
+    ``SyncClient`` takes a ``cert_verifier``, a WAL writes a certificate
+    record byte for byte as the JAX package's does and each package
+    replays the other's file, and a ``ChainRunner`` takes a ``certifier``.
+    (The checkpoint and ``warm_start`` hooks still raise: below.)"""
+    import importlib
 
-    m = pkg(PACKAGES[0])
-    blocks, _, src = _signed_range(m, heights=(1,))
-    with pytest.raises(NotPortedError, match="crypto.quorum_cert.*BLS slice"):
-        m.chain.SyncClient(b"me", m.chain.LoopbackSyncNetwork(), m.verify.HostBatchVerifier(src), src,
-                           cert_verifier=object())
-    wal = m.chain.WriteAheadLog(str(tmp_path / "port.jsonl"))
-    with pytest.raises(NotPortedError, match="BLS slice"):
-        wal.append_finalize(1, blocks[0].proposal, [], cert=_Stub())
-    # A WAL the JAX package wrote with a certificate record: replay raises
-    # and never takes the record for a torn tail.
-    jax = pkg(PACKAGES[1])
-    path = str(tmp_path / "jax.jsonl")
-    jwal = jax.chain.WriteAheadLog(path)
-    jwal.append_finalize(1, jax.wire.Proposal(raw_proposal=b"b1", round=0), [])
-    jwal.append_finalize(2, jax.wire.Proposal(raw_proposal=b"b2", round=0), [], cert=_Stub())
-    jwal.close()
-    with open(path, "rb") as fh:
-        before = fh.read()
-    assert json.loads(before.splitlines()[-1])["cert"] == "0102"
-    with pytest.raises(NotPortedError, match="crypto.quorum_cert"):
-        m.chain.WriteAheadLog(path).replay()
-    with open(path, "rb") as fh:
-        assert fh.read() == before
+    files, certs = {}, {}
+    for name in PACKAGES:
+        m = pkg(name)
+        qc = importlib.import_module(f"{name}.crypto.quorum_cert")
+        bls = importlib.import_module(f"{name}.crypto.bls")
+        vbls = importlib.import_module(f"{name}.verify.bls")
+        eck = [m.crypto.PrivateKey.from_seed(b"torch-hooks-%d" % i) for i in range(2)]
+        blk = [bls.BLSPrivateKey.from_seed(b"torch-hooks-%d" % i) for i in range(2)]
+        powers = {k.address: 1 for k in eck}
+        keys = {e.address: b.pubkey for e, b in zip(eck, blk)}
+        src = m.cb.ECDSABackend.static_validators(powers)
+        certifier = qc.BLSCertifier(src, lambda _h: keys)
+        proposal = m.wire.Proposal(raw_proposal=b"b1", round=0)
+        phash = m.cb.proposal_hash_of(proposal)
+        seals = [m.helpers.CommittedSeal(e.address, vbls.encode_seal(b.sign(phash))) for e, b in zip(eck, blk)]
+        cert = certifier.build(1, 0, phash, seals)
+        client = m.chain.SyncClient(b"me", m.chain.LoopbackSyncNetwork(), m.verify.HostBatchVerifier(src), src,
+                                    cert_verifier=certifier)
+        assert client.cert_verifier is certifier
+        path = tmp_path / f"{name}.jsonl"
+        wal = m.chain.WriteAheadLog(str(path))
+        wal.append_finalize(1, proposal, [], cert=cert)
+        wal.close()
+        files[name], certs[name] = path.read_bytes(), cert.encode()
+        assert json.loads(files[name].splitlines()[-1])["cert"] == cert.encode().hex()
+        engine = m.core.IBFT(None, m.cb.ECDSABackend(eck[0], src), None)
+        runner = m.chain.ChainRunner(engine, m.chain.WriteAheadLog(str(tmp_path / f"{name}-r.jsonl")),
+                                     certifier=certifier)
+        assert runner.certifier is certifier
+        runner.wal.close()
+    assert files[PACKAGES[0]] == files[PACKAGES[1]]
+    for reader, writer in (PACKAGES, PACKAGES[::-1]):
+        state = pkg(reader).chain.WriteAheadLog(str(tmp_path / f"{writer}.jsonl")).replay()
+        assert state.blocks[0].cert.encode() == certs[writer] and state.blocks[0].seals == []
 
 
 def test_checkpoint_and_boot_hooks_raise_not_ported(tmp_path):
@@ -260,8 +277,6 @@ def test_checkpoint_and_boot_hooks_raise_not_ported(tmp_path):
     runner = m.chain.ChainRunner(engine(), wal)
     with pytest.raises(NotPortedError, match="boot.warmstart.*boot slice"):
         runner.warm_start()
-    with pytest.raises(NotPortedError, match="BLS slice"):
-        m.chain.ChainRunner(engine(), wal, certifier=object())
     with pytest.raises(NotPortedError, match="serving slice"):
         m.chain.ChainRunner(engine(), wal, checkpointer=object())
 

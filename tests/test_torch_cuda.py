@@ -306,9 +306,19 @@ CHAIN_SLICE_MODULES = (
 )
 
 
+# The BLS slice's modules.
+BLS_SLICE_MODULES = (
+    "go_ibft_tpu_torch.crypto.bls", "go_ibft_tpu_torch.crypto.bls_backend",
+    "go_ibft_tpu_torch.crypto.quorum_cert", "go_ibft_tpu_torch.ops.bls_fp", "go_ibft_tpu_torch.ops.bls12_381",
+    "go_ibft_tpu_torch.ops.bls_kernels", "go_ibft_tpu_torch.verify.bls", "go_ibft_tpu_torch.verify.aggregate",
+    "go_ibft_tpu_torch.bench.bls_workload", "go_ibft_tpu_torch.bench.bls_chain", "go_ibft_tpu_torch.net",
+    "go_ibft_tpu_torch.net.aggtree",
+)
+
+
 def test_port_imports_nothing_of_jax():
     """A fresh interpreter where ``import jax`` fails imports every module
-    of ``go_ibft_tpu_torch``, the chain slice's among them; no
+    of ``go_ibft_tpu_torch``, the chain and BLS slices' among them; no
     ``go_ibft_tpu`` module gets loaded."""
     root = Path(__file__).resolve().parent.parent
     code = """
@@ -328,6 +338,115 @@ print(" ".join(names))
     names = set(out.stdout.split())
     assert len(names) >= 50
     assert set(CHAIN_SLICE_MODULES) <= names, set(CHAIN_SLICE_MODULES) - names
+    assert set(BLS_SLICE_MODULES) <= names, set(BLS_SLICE_MODULES) - names
+
+
+def test_every_bound_entry_point_is_in_its_source():
+    """Each C entry point ``_build.SIGNATURES`` binds is defined as an
+    ``extern "C"`` function in its ``csrc/<name>.cu`` with as many
+    parameters as it binds (the kernels' launchers, not the ``_host``
+    twins the CPU tests build)."""
+    import re
+
+    from go_ibft_tpu_torch import _build
+
+    for name, fns in _build.SIGNATURES.items():
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        defined = {fn for fn in re.findall(r'extern "C" int (\w+)\(', src) if not fn.endswith("_host")}
+        assert set(fns) <= defined, (name, set(fns) - defined)
+        for fn, (argtypes, _) in fns.items():
+            params = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", src).group(1)
+            assert len([p for p in params.split(",") if p.strip()]) == len(argtypes), fn
+
+
+@pytest.fixture(scope="module")
+def bls_inputs():
+    """Seeded BLS inputs: a 3-signer aggregate lane (valid), a lane of
+    pool points (invalid), and 7 groups of pool points with a cancelling
+    pair, duplicates, negations and dead lanes."""
+    from go_ibft_tpu_torch.crypto import bls as hbls
+    from go_ibft_tpu_torch.ops import bls12_381 as ops
+
+    rng = np.random.default_rng(3)
+    pool2 = [hbls.g2_mul(k, hbls.G2_GEN) for k in range(1, 9)]
+    pool1 = [hbls.g1_mul(k, hbls.G1_GEN) for k in range(1, 9)]
+    msg = b"\x11" * 32
+    keys = [hbls.BLSPrivateKey(k) for k in (3, 5, 7)]
+    s = hbls.aggregate_signatures([k.sign(msg) for k in keys])
+    pk = hbls.aggregate_pubkeys([k.pubkey for k in keys])
+    lanes_s, lanes_h, lanes_pk = [s, pool2[1]], [hbls.hash_to_g2(msg), pool2[2]], [pk, pool1[3]]
+    q = torch.from_numpy(np.stack([ops.pack_g2_points(lanes_s), ops.pack_g2_points(lanes_h)]))
+    p = torch.from_numpy(np.stack([ops.pack_g1_points([hbls.G1_GEN] * 2),
+                                   ops.pack_g1_points([hbls.g1_neg(x) for x in lanes_pk])]))
+    idx = rng.integers(0, 8, (7, 9))
+    g2 = ops.pack_g2_points(pool2)[idx]
+    g2[0, 1] = ops.pack_g2_points([hbls.g2_neg(pool2[int(idx[0, 0])])])[0]
+    live = torch.from_numpy(rng.random((7, 9)) > 0.2)
+    live[0, :2] = True
+    live[1] = False
+    g1 = ops.pack_g1_points(pool1)[idx]
+    return q, p, torch.from_numpy(np.ascontiguousarray(g2)), torch.from_numpy(np.ascontiguousarray(g1)), live
+
+
+@pytest.mark.cuda
+def test_bls_kernels_match_plain_and_the_oracle(cuda_device, bls_inputs):
+    """The three pairing kernels, bit-exact against their plain versions;
+    the valid lane verifies, the pool lane does not."""
+    from go_ibft_tpu_torch.ops import bls12_381 as ops
+    from go_ibft_tpu_torch.ops import bls_kernels as bk
+
+    q, p, g2, g1, live = bls_inputs
+    before = (bk.merge.launches, bk.miller.launches, bk.final_exp.launches)
+    for pts in (g2, g1):
+        for neg_y in (False, True):
+            out, inf = bk.merge(pts.to(cuda_device), live.to(cuda_device), neg_y)
+            torch.cuda.synchronize()
+            ref, rinf = ops.merge_plain(pts, live, neg_y)
+            assert torch.equal(out.cpu(), ref) and torch.equal(inf.cpu(), rinf)
+    f = bk.miller(q.to(cuda_device), p.to(cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(f.cpu(), ops.miller_plain(q, p))
+    gate = torch.ones(2, dtype=torch.bool)
+    ok, res = bk.final_exp(f, gate.to(cuda_device))
+    torch.cuda.synchronize()
+    pok, pres = ops.final_exp_plain(f.cpu(), gate)
+    assert torch.equal(ok.cpu(), pok) and torch.equal(res.cpu(), pres)
+    assert ok.cpu().tolist() == [True, False]
+    assert (bk.merge.launches, bk.miller.launches, bk.final_exp.launches) == (
+        before[0] + 4, before[1] + 1, before[2] + 1)
+
+
+@pytest.mark.cuda
+def test_bls_aggregate_check_on_card_without_fallback(cuda_device):
+    """``aggregate_check``'s device route on the card: four kernel launches
+    and the host oracle's verdicts, a bad seal included."""
+    from go_ibft_tpu_torch.bench import build_bls_round_workload
+    from go_ibft_tpu_torch.ops import bls_kernels as bk
+    from go_ibft_tpu_torch.verify.bls import aggregate_check
+
+    w = build_bls_round_workload(8, seed=1, time_host=False)
+    before = bk.final_exp.launches
+    assert aggregate_check(w.message, list(w.sigs), list(w.pubkeys), device=True)
+    sigs = list(w.sigs)
+    sigs[3] = sigs[4]
+    assert not aggregate_check(w.message, sigs, list(w.pubkeys), device=True)
+    assert bk.final_exp.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_bls_launchers_refuse_cpu_and_malformed_tensors(cuda_device, bls_inputs):
+    from go_ibft_tpu_torch.ops import bls_kernels as bk
+
+    q, p, g2, _, live = bls_inputs
+    with pytest.raises(ValueError):
+        bk.launch_merge(g2, live)  # CPU tensors
+    with pytest.raises(ValueError):
+        bk.launch_merge(g2.to(cuda_device), live[:, :3].to(cuda_device))
+    with pytest.raises(ValueError):
+        bk.launch_miller(q.to(cuda_device), p[:, :1].to(cuda_device))
+    with pytest.raises(ValueError):
+        bk.launch_final_exp(torch.zeros(2, 12, 11, dtype=torch.int32, device=cuda_device),
+                            torch.ones(2, dtype=torch.bool, device=cuda_device))
 
 
 def test_port_chaos_loads_no_clients_module():
