@@ -71,7 +71,8 @@ Phases, in order (any failure exits non-zero and prints no result):
    final exponentiation at 1 and 64), a few lanes also against
    ``crypto.bls`` (the pairing ratio cubed); config #4 (one
    100-validator aggregate COMMIT check: verdict, median of 20 calls, one
-   host-oracle call, a profiled call); config #9's Byzantine mix (100
+   host-oracle call, a profiled call in a process of its own,
+   ``--bls-profile``); config #9's Byzantine mix (100
    seals, 1 and 5 corrupted) through ``BLSAggregateVerifier``; config
    #13's 64 certificates through ``BLSCertifier.verify_many`` against the
    per-certificate loop, a relabeled and a bit-flipped one rejected, and
@@ -91,7 +92,8 @@ Phases, in order (any failure exits non-zero and prints no result):
 ``--digest-only`` runs none of this: it times ``ops.quorum.digest_words``
 and the recovery kernel of whichever ``go_ibft_tpu_torch`` comes first on
 the import path, so that two checkouts are timed by the same code in one
-call (``digest_only`` below).
+call (``digest_only`` below).  ``--bls-profile`` only profiles config #4's
+BLS kernels and one check (``bls_profile``; phase 10 runs it).
 
 It imports nothing of JAX or of the JAX package.  It needs one card and
 exits non-zero where ``torch.cuda.is_available()`` is false.
@@ -232,9 +234,8 @@ def profile_call(fn) -> dict:
         fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels, launches, by_name, count_by_name, types = 0, 0, {}, {}, {}
+    kernels, launches, by_name, count_by_name = 0, 0, {}, {}
     for evt in prof.events():
-        types[str(evt.device_type)] = types.get(str(evt.device_type), 0) + 1
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             kernels += 1
             by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
@@ -248,7 +249,6 @@ def profile_call(fn) -> dict:
         "profiled_wall_ms": wall_ms,
         "by_name_ms": by_name,
         "count_by_name": count_by_name,
-        "events_by_device_type": types,
     }
 
 
@@ -806,18 +806,35 @@ def chain_phase(report: dict, ident: str, counts, holds, held_before: set) -> di
 # 144 for the reduction, each 32 x 32 -> 64 bits, two 32-bit multiply-adds
 # (the low and the high word).
 OPS_BLS_FP_MUL = 2 * 2 * 144
-# Fp products per lane, counted from csrc/bls12_381.cuh (an Fp2 product is
-# 3, an Fp12 product 54): a Miller side's 63 doubling steps (146 each) and
-# 5 addition steps (94 each), two sides and their product; the final
-# exponentiation's easy part (the Fp12 inverse: 112 plus one Fermat inverse
-# of 384 squarings and 191 products) and hard part (five x-powers of 68
-# Fp12 products, and 17 more); a complete addition on G2 (44) or G1 (16),
-# and one affine map (a Fermat inverse and 3 or 2 x 3 products).
-BLS_FERMAT_MULS = 384 + 191
-BLS_MILLER_MULS = 2 * (63 * 146 + 5 * 94) + 54
-BLS_FINAL_EXP_MULS = 112 + BLS_FERMAT_MULS + 54 + 18 + 54 + 5 * 68 * 54 + 54 + 54 + 72 + 126 + 162
-BLS_ADD_MULS = {2: 16, 4: 44}
-BLS_AFFINE_MULS = {2: BLS_FERMAT_MULS + 4, 4: BLS_FERMAT_MULS + 4 + 2 * 3 + 3 * 4}
+# An Fp inversion by the binary extended Euclid needs no product: about
+# 2 x 381 steps, each about four 12-word adds or shifts.
+OPS_BLS_FP_INV = 2 * 381 * 4 * 12
+# The least work of each function in Fp products (a squaring counts as a
+# product), with the cheapest published formulas, not the kernels' own
+# (which square by multiplying, multiply lines in as full Fp12 elements and
+# run each side's Miller loop on its own): an Fp2 product is 3, a squaring
+# 2; an Fp6 product 18, a squaring 12; an Fp12 product 54, a squaring 36, a
+# cyclotomic squaring 18 (Granger-Scott: 9 Fp2 squarings); a sparse line
+# times an Fp12 39 (13 Fp2 products).
+# Miller, a lane's two pairs sharing one accumulator: 62 Fp12 squarings (the
+# first is of 1); 2 x 63 doubling steps with their lines (3 Fp2 products, 6
+# squarings, 4 Fp products: 25; Aranha et al., Eurocrypt 2011), each line
+# multiplied in (39); 2 x 5 addition steps (11 Fp2 products, 2 squarings, 4
+# Fp products: 41), each line multiplied in (39).
+BLS_MILLER_MULS = 62 * 36 + 2 * 63 * (25 + 39) + 2 * 5 * (41 + 39)
+# Final exponentiation (cubed), besides one Fp inversion: the easy part's
+# Fp12 inverse (2 Fp6 squarings, 2 Fp6 products, an Fp6 inverse of 37),
+# two Fp12 products and a p^2 Frobenius (10); the hard part's five x-powers
+# (63 cyclotomic squarings and 5 products each), 7 more products, one
+# cyclotomic squaring, a p Frobenius (15) and a p^2 one (10).
+BLS_FINAL_EXP_MULS = (2 * 12 + 2 * 18 + 37) + 2 * 54 + 10 + 5 * (63 * 18 + 5 * 54) + 7 * 54 + 18 + 15 + 10
+# The merge, a group of n live points: n - 1 affine additions with the
+# inversions batched (Montgomery's trick, 3 products an element) over each
+# tree level of the launch: 6 products in the coordinates' field (G1: 6 Fp;
+# G2: 5 Fp2 products and a squaring, 17), and one inversion a level (G2: an
+# Fp inversion and 4 products).  The affine inputs need no map back.
+BLS_ADD_MULS = {2: 6, 4: 17}
+BLS_INV_MULS = {2: 0, 4: 4}
 BLS_MERGE_V = (2, 8, 128, 1024)
 BLS_MERGE_G = (1, 7, 64)
 BLS_WHERE = {
@@ -829,10 +846,16 @@ BLS_WHERE = {
 
 def merge_ops(live, coords: int) -> int:
     """32-bit operations a merge of these groups needs: (live points - 1)
-    complete additions and one affine map per group."""
-    per_group = [max(int(n) - 1, 0) * BLS_ADD_MULS[coords] + BLS_AFFINE_MULS[coords]
-                 for n in live.sum(dim=-1).tolist()]
-    return sum(per_group) * OPS_BLS_FP_MUL
+    affine additions a group and one inversion a tree level."""
+    n = live.sum(dim=-1).flatten().tolist()
+    levels = (max(n, default=1) - 1).bit_length()
+    adds = sum(max(int(k) - 1, 0) for k in n)
+    return (adds * BLS_ADD_MULS[coords] + levels * BLS_INV_MULS[coords]) * OPS_BLS_FP_MUL + levels * OPS_BLS_FP_INV
+
+
+def final_exp_ops(n: int) -> int:
+    """32-bit operations of n lanes' final exponentiations."""
+    return n * (BLS_FINAL_EXP_MULS * OPS_BLS_FP_MUL + OPS_BLS_FP_INV)
 
 
 def bls_phase(report: dict, ident: str, counts, dev=None, small: bool = False) -> dict:
@@ -882,16 +905,14 @@ def bls_phase(report: dict, ident: str, counts, dev=None, small: bool = False) -
             torch.cuda.synchronize()
 
     def same(got, ref, name, what):
-        check(torch.equal(got.cpu(), ref.cpu()), f"{name} kernel == plain, {what}")
+        """Hold a kernel's output against its plain version's; fold the
+        largest absolute difference into the kernels line's max_abs_err."""
+        got, ref = got.cpu(), ref.cpu()
+        check(torch.equal(got, ref), f"{name} kernel == plain, {what}")
+        if got.numel():
+            err[name] = max(err[name], int((got.to(torch.int64) - ref.to(torch.int64)).abs().max()))
 
     # -- 1. each kernel against its plain version ----------------------------
-    if card:  # does the profiler see the card here? (phase 7's calls did)
-        probe = torch.zeros(2, 12, 12, dtype=torch.int32, device=dev)
-        seen = profile_call(lambda: (probe + 1, bk.launch_final_exp(probe, torch.zeros(2, dtype=torch.bool,
-                                                                                          device=dev))))
-        out["profiler_probe"] = {"device_kernels": seen["device_kernels"], "names": sorted(seen["count_by_name"]),
-                                 "events_by_device_type": seen["events_by_device_type"]}
-        log(f"[10] profiler probe (one torch add, one bls_final_exp launch): {out['profiler_probe']}")
     pool = {2: [hbls.G1_GEN], 4: [hbls.G2_GEN]}
     for _ in range(63):
         pool[2].append(hbls.g1_add(pool[2][-1], hbls.G1_GEN))
@@ -1034,8 +1055,6 @@ def bls_phase(report: dict, ident: str, counts, dev=None, small: bool = False) -
         p1 = torch.stack([gen, npk]).contiguous()
         f1 = bk.launch_miller(q1, p1)
         g1 = ~pk_inf & ~s_inf
-        prof = profile_call(lambda: (bk.launch_merge(sig.unsqueeze(0), live.unsqueeze(0)), bk.launch_miller(q1, p1),
-                                     bk.launch_final_exp(f1, g1)))
         lv = live.unsqueeze(0).cpu()
         timing["bls_merge"] = {
             "shape": f"G2 1 x {sig.shape[0]}",
@@ -1054,32 +1073,29 @@ def bls_phase(report: dict, ident: str, counts, dev=None, small: bool = False) -
             "shape": "N=1",
             "ms": cuda_time_ms(lambda: bk.launch_final_exp(f1, g1), 5),
             "plain_ms": cuda_time_ms(lambda: ops.final_exp_plain(f1, g1), 1),
-            **bound(144 * 4 + 1 + 1 + 144 * 4, BLS_FINAL_EXP_MULS * OPS_BLS_FP_MUL),
+            **bound(144 * 4 + 1 + 1 + 144 * 4, final_exp_ops(1)),
         }
+        # torch.profiler stops recording the card's activity once some tens
+        # of seconds pass after its last session in a process (PERF.md §7),
+        # so the profiled calls run in a process of their own.
+        child = subprocess.run([sys.executable, os.path.abspath(__file__), "--bls-profile"],
+                               capture_output=True, text=True, timeout=600)
+        check(child.returncode == 0, f"the --bls-profile process exited 0 ({child.stderr[-2000:]})")
+        profiled = json.loads(child.stdout.strip().splitlines()[-1])
         for name, t in timing.items():
-            names = [k for k in prof["count_by_name"] if name in k]
-            # The profiler's time per launch where it recorded the kernel,
-            # else None (the events' time stands).
-            t["device_ms_per_launch"] = per_launch_ms(prof, name) if names else None
-            on_card = f" ({t['device_ms_per_launch'] * 1e3:.1f} us on the card)" if names else " (profiler: not recorded)"
-            log(f"[10] {name} at config #4's {t['shape']}: kernel {t['ms']:.4f} ms{on_card}, plain "
-                f"{t['plain_ms']:.1f} ms, bound {t['bound_ms']:.3g} ms ({t['bound_by']})")
+            t["device_ms_per_launch"] = profiled["device_ms_per_launch"][name]
+            log(f"[10] {name} at config #4's {t['shape']}: kernel {t['ms']:.4f} ms "
+                f"({t['device_ms_per_launch'] * 1e3:.1f} us on the card), plain {t['plain_ms']:.1f} ms, "
+                f"bound {t['bound_ms']:.3g} ms ({t['bound_by']})")
 
         host_ms, event_ms = median_ms(lambda: bool(ops.aggregate_verify_commit(*args)), calls=20)
-        prof = profile_call(lambda: bool(ops.aggregate_verify_commit(*args)))
-        prof["top_kernels_ms"] = sorted(prof.pop("by_name_ms").items(), key=lambda kv: -kv[1])[:6]
-        prof.pop("count_by_name")
-        if prof["device_kernels"]:
-            busy, source = prof["device_busy_ms"], "profiler"
-        else:  # the profiler saw no device activity: the four launches' event times
-            busy = timing["bls_merge"]["ms"] + timing["bls_merge"]["g1_ms"] + timing["bls_miller"]["ms"] \
-                + timing["bls_final_exp"]["ms"]
-            source = "CUDA events of the four launches (the profiler recorded no device activity)"
-        prof.update(device_busy_ms=busy, busy_source=source, idle_share_vs_median=1 - busy / host_ms)
+        prof = profiled["config4"]
+        busy = prof["device_busy_ms"]
+        prof["idle_share_vs_median"] = 1 - busy / host_ms
         c4_out.update(median_host_ms=host_ms, median_event_ms=event_ms, profile=prof)
         log(f"[10] config #4 (100 validators): verdict true; median of 20 {host_ms:.3f} ms host / {event_ms:.3f} ms "
             f"events vs the host oracle's {w.host_ms:.1f} ms; profile: {prof['device_kernels']} kernels, "
-            f"{prof['launch_calls']} launch calls, device busy {busy:.3f} ms ({source}), idle "
+            f"{prof['launch_calls']} launch calls, device busy {busy:.3f} ms (profiler), idle "
             f"{prof['idle_share_vs_median']:.3f}")
         for name, ms in prof["top_kernels_ms"]:
             log(f"    {ms:9.4f} ms  {name[:90]}")
@@ -1158,7 +1174,7 @@ def bls_phase(report: dict, ident: str, counts, dev=None, small: bool = False) -
                 "bls_final_exp_ms": cuda_time_ms(lambda: bk.launch_final_exp(fn, gn), 3),
                 "bls_miller_bound": bound(qn.numel() * 4 + pn.numel() * 4 + n * 144 * 4,
                                           n * BLS_MILLER_MULS * OPS_BLS_FP_MUL),
-                "bls_final_exp_bound": bound(n * (144 * 4 * 2 + 2), n * BLS_FINAL_EXP_MULS * OPS_BLS_FP_MUL),
+                "bls_final_exp_bound": bound(n * (144 * 4 * 2 + 2), final_exp_ops(n)),
             }
             c13_out[f"lanes_{n}"] = row
             log(f"[10] config #13 at {n} lanes: multi_aggregate_check {row['multi_aggregate_check_ms']:.2f} ms; "
@@ -1291,11 +1307,45 @@ def digest_only() -> int:
     return 0
 
 
+def bls_profile() -> int:
+    """Profile config #4 on the card in a process of its own (phase 10 runs
+    this file with ``--bls-profile``): the three BLS kernels at config #4's
+    shapes, three launches each, and one ``aggregate_verify_commit`` call.
+    Prints one JSON line: each kernel's time on the card per launch, and
+    the call's kernels, launch calls and device busy time."""
+    from go_ibft_tpu_torch.bench import build_bls_round_workload
+    from go_ibft_tpu_torch.ops import bls12_381 as ops
+    from go_ibft_tpu_torch.ops import bls_kernels as bk
+
+    dev = torch.device("cuda")
+    pk, sig, h, live = (torch.from_numpy(a).to(dev) for a in build_bls_round_workload(100, seed=0).args)
+    check(bool(ops.aggregate_verify_commit(pk, sig, h, live)), "config #4: the aggregate check is true")
+    npk, pk_inf = bk.launch_merge(pk.unsqueeze(0), live.unsqueeze(0), True)
+    s, s_inf = bk.launch_merge(sig.unsqueeze(0), live.unsqueeze(0))
+    gen = torch.from_numpy(ops._G1_GEN).to(dev).unsqueeze(0)
+    q1 = torch.stack([s, h.unsqueeze(0)]).contiguous()
+    p1 = torch.stack([gen, npk]).contiguous()
+    f1 = bk.launch_miller(q1, p1)
+    g1 = ~pk_inf & ~s_inf
+    kern = profile_call(lambda: [(bk.launch_merge(sig.unsqueeze(0), live.unsqueeze(0)), bk.launch_miller(q1, p1),
+                                  bk.launch_final_exp(f1, g1)) for _ in range(3)])
+    call = profile_call(lambda: bool(ops.aggregate_verify_commit(pk, sig, h, live)))
+    bls = sum(n for name, n in call.pop("count_by_name").items() if "bls_" in name)
+    check(bls == 4, f"the profiler recorded config #4's four BLS kernels ({bls})")
+    call["top_kernels_ms"] = sorted(call.pop("by_name_ms").items(), key=lambda kv: -kv[1])[:6]
+    print(json.dumps({"device_ms_per_launch": {name: per_launch_ms(kern, name)
+                                               for name in ("bls_merge", "bls_miller", "bls_final_exp")},
+                      "config4": call}), flush=True)
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write every measurement to this file")
     parser.add_argument("--digest-only", action="store_true",
                         help="only time digest_words and the recovery kernel (see digest_only)")
+    parser.add_argument("--bls-profile", action="store_true",
+                        help="only profile config #4's BLS kernels and one check (see bls_profile)")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -1303,6 +1353,8 @@ def main() -> int:
         return 2
     if args.digest_only:
         return digest_only()
+    if args.bls_profile:
+        return bls_profile()
 
     import numpy as np
 

@@ -68,16 +68,6 @@ HEIGHT_MS_KEY = ("go-ibft", "chain", "height_ms")
 OVERLAP_LANES_KEY = ("go-ibft", "chain", "overlap_lanes")
 
 
-def _certifier_on_card(certifier) -> bool:
-    """Whether a certifier's device routes (its own pairing route, its
-    merge tree, its multi-pairing verifier) run on the card."""
-    return any(
-        on_card(c)
-        for c in (certifier, getattr(certifier, "_aggregator", None), getattr(certifier, "_multipair", None))
-        if c is not None
-    )
-
-
 class ChainRunner:
     """Drives one engine through consecutive heights; implements the
     :class:`~go_ibft_tpu_torch.chain.sync.SyncSource` protocol for peers.
@@ -250,7 +240,7 @@ class ChainRunner:
                         height, proposal.round, proposal_hash_of(proposal), seals
                     )
                 except Exception as err:  # noqa: BLE001 - keep per-seal
-                    if _certifier_on_card(self.certifier):
+                    if on_card(self.certifier):
                         raise
                     # SAY so: a persistently mis-wired certifier silently
                     # producing O(N) records forever is an operations bug

@@ -47,6 +47,7 @@ from ..verify.bls import (
     encode_seal,
 )
 from ..utils.device import DeviceLike, resolve_device
+from ..verify.batch import on_card
 from . import bls as hbls
 
 __all__ = [
@@ -208,9 +209,8 @@ class BLSCertifier:
         self._validators = validators_for_height
         self._keys = bls_keys_for_height
         self._device = device
-        # Where the device routes run (None: the card); ``self.device`` is
-        # read by :func:`~go_ibft_tpu_torch.verify.batch.on_card`.
-        self.device = resolve_device(torch_device) if device else None
+        # Where the device routes run (None: the card).
+        self._torch_device = resolve_device(torch_device) if device else None
         # Batched verification route: ``multipair`` is a
         # :class:`~go_ibft_tpu_torch.verify.aggregate.MultiPairVerifier` (or
         # anything with ``check(lanes)``); :meth:`verify_many` routes a
@@ -224,6 +224,14 @@ class BLSCertifier:
         # instead of the sequential host g2_add loop (bit-identical
         # results; the host loop is the oracle and the default).
         self._aggregator = aggregator
+
+    @property
+    def device(self):
+        """What :func:`~go_ibft_tpu_torch.verify.batch.on_card` reads: the
+        merge tree or multi-pairing verifier where one runs on the card,
+        else this certifier's own device (None on the host route)."""
+        on = [c for c in (self._aggregator, self._multipair) if c is not None and on_card(c)]
+        return on[0] if on else self._torch_device
 
     # -- build -----------------------------------------------------------
 
@@ -338,7 +346,7 @@ class BLSCertifier:
                 return False
             pubkeys.append(pk)
         return aggregate_check(
-            proposal_hash, [point], pubkeys, device=self._device, torch_device=self.device
+            proposal_hash, [point], pubkeys, device=self._device, torch_device=self._torch_device
         )
 
     # -- verify ----------------------------------------------------------
@@ -388,7 +396,7 @@ class BLSCertifier:
             return False
         phash, points, pubkeys = lane
         return aggregate_check(
-            phash, points, pubkeys, device=self._device, torch_device=self.device
+            phash, points, pubkeys, device=self._device, torch_device=self._torch_device
         )
 
     def verify_many(self, certs: Sequence[AggregateQuorumCertificate]):
@@ -423,7 +431,7 @@ class BLSCertifier:
             mask = self._multipair.check(lanes)
         else:
             mask = multi_aggregate_check(
-                lanes, route="device" if self._device else "host", torch_device=self.device
+                lanes, route="device" if self._device else "host", torch_device=self._torch_device
             )
         out[np.asarray(idx)] = np.asarray(mask, dtype=bool)
         return out
