@@ -3,48 +3,117 @@
 // * bls_merge (G1 and G2): the masked sum of each group's points, as
 //   canonical affine coordinates (y optionally negated) and an infinity
 //   flag.  Replaces the JAX package's tree aggregation
-//   (go_ibft_tpu/ops/bls12_381.py: _aggregate_stage, g1_merge_tree,
-//   g2_merge_tree, _multi_g1_neg_aggregate_stage, over _tree_reduce and
-//   _jac_ops).  One block of 128 threads a group: thread t folds the live
-//   points t, t + 128, ... serially, then the block sums its 128 partial
-//   sums in a halving tree in shared memory (a G2 Jacobian point is 288 B,
-//   so 128 of them are 36 KB, and a 1,024-point group takes 8 serial
-//   additions a thread), and thread 0 inverts z once.  The additions are
-//   complete (P + P doubles, P + (-P) is infinity, infinity returns the
-//   other point), so every order of the sum gives the same point.
+//   (go_ibft_tpu/ops/bls12_381.py:759 _aggregate_stage, :1024 g2_merge_tree,
+//   :1045 g1_merge_tree, :1098 _multi_g1_neg_aggregate_stage, over
+//   _tree_reduce and _jac_ops).  One block of 128 threads a group: thread t
+//   folds the live points t, t + 128, ... serially, then the block sums its
+//   128 partial sums in a halving tree in shared memory, and thread 0
+//   inverts z once.  The additions are complete (P + P doubles, P + (-P) is
+//   infinity, infinity returns the other point), so every order of the sum
+//   gives the same point.  Its algorithm is its first version's; it now
+//   runs on the register product and the Kaliski inverse below.
 // * bls_miller: per lane i the Miller loops of its two sides, (S_i, G1) and
-//   (H_i, -PK_i), and their product in Fp12.  Replaces _miller_product_stage
-//   and _multi_miller_stage (miller_loop, _dbl_step, _add_step).  Two
-//   threads a lane, one a side, in one warp; the second side's value goes
-//   through shared memory to the first, which multiplies.  The loop runs the
-//   five addition steps on the set bits of |x| only, where the JAX program
-//   computes one on every bit and selects.
+//   (H_i, -PK_i), and their product in Fp12.  Replaces :789
+//   _miller_product_stage and :1117 _multi_miller_stage (:576 miller_loop,
+//   :515 _dbl_step, :534 _add_step).
 // * bls_final_exp: per lane f^(3 (p^12 - 1) / r) == 1, gated on the lane's
 //   flag (its aggregates are not infinity and the lane is live), and the
-//   Fp12 result where asked.  Replaces _easy_part_stage, _hard_part_stage,
-//   _finish_stage and f12_eq_one.  One thread a lane.
+//   Fp12 result.  Replaces :809 _easy_part_stage, :838 _hard_part_stage,
+//   :898 _finish_stage and :685 f12_eq_one.
 //
-// What bounds them on an H100: operations.  A lane's Miller loop is about
-// 7,000 field products and its final exponentiation about 20,000, each 288
-// 32-bit multiply-adds; inputs and outputs are a few hundred bytes.  This
-// first version is one thread a lane (two for the Miller loop) with the
-// state in local memory: a 100-validator check is one Miller lane and one
-// final-exponentiation lane, so the time is one thread's dependency chain.
-// Spreading a lane's field products over a warp is a later redesign.
+// What bounds the two pairing kernels on an H100: operations, and at one
+// lane (a 100-validator check is one Miller lane and one final-exponentiation
+// lane) the latency of the tower's critical path, not the card's width.  A
+// lane's least work is ~10,500 Fp products for its Miller loops and ~7,700
+// and one inversion for its final exponentiation (chip_smoke.py's
+// BLS_*_MULS), each ~600 dependent 32-bit multiply-adds; inputs and outputs
+// are a few hundred bytes.  The first version ran a lane on one thread (two
+// for the Miller loop) with its Fp12 values in local memory: 31.9 ms and
+// 59.6 ms at one lane on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6 has
+// this version's times beside them).
+//
+// The design: a lane on a block of kMillerThreads / kExpThreads threads,
+// its values in shared memory, its work the fixed sequence of rounds of
+// bls12_381_schedule.cuh (generated by ops/bls_schedule.py, which explains
+// the schedules).  In a round every thread computes an independent Fp
+// product in registers, so a round costs about one product's latency and
+// two short sums however wide it is:
+//   - an Fp12 product is one round of 54 products, a squaring 36 (the
+//     complex method), a cyclotomic squaring 18 (Granger-Scott), a
+//     Frobenius map 10-12; an output sum of more than 8 terms is split over
+//     several threads and finished in a second, short store phase;
+//   - the Miller loop keeps one accumulator for both sides (f <- f^2 l0 l1
+//     a step: the product of the two sides' values, with 63 squarings and
+//     the closing product saved) and software-pipelines it: the two sides'
+//     doubling and line work of step k runs in the same three rounds as f's
+//     squaring, the product of step k - 1's two lines (18) and f^2 times it
+//     (51): 219 rounds and 11,266 products in all, the five additions on the
+//     set bits of |x|;
+//   - the final exponentiation: the easy part's inverse goes down the tower
+//     to one Fp inversion (Kaliski, one thread), the hard part is five
+//     x-powers of 63 cyclotomic squarings and 5 products each, the
+//     Frobenius maps fused into squaring rounds: 358 rounds, 7,617 products.
+// One block a lane: lanes never share a barrier, and a grid of N blocks
+// covers N lanes.  The products are a fifth to a third of a round's time on
+// the card; the rest is the sums, whose terms are loaded a batch at a time
+// (bench/bls_variants.py measures the split and every constant below).
 //
 // The lane arithmetic is in bls12_381.cuh.  Under a host C++ compiler this
-// file builds the _host entry points instead of the kernels: the same lane
-// functions, a group's 128 "threads" and a lane's two sides one after the
-// other, which the CPU tests hold against the host oracle.
+// file builds the _host entry points instead of the kernels: the same
+// rounds, each phase's threads one after another over a host array that
+// stands for shared memory, which the CPU tests hold against the host
+// oracle and the plain versions.
 
 #include "bls12_381.cuh"
 
 namespace {
 
-constexpr int kMergeThreads = 128;  // threads a group
-constexpr int kMillerLanes = 32;    // lanes a block, two threads each
-constexpr int kExpLanes = 32;       // lanes a block, one thread each
+constexpr int kMergeThreads = 128;                // threads a group
+// Threads a Miller lane: its widest rounds hold 62 products.
+constexpr int kMillerThreads = 64;
+// Threads a final-exponentiation lane: 64 while lanes are few (a lane's
+// rounds are latency-bound, and its products rounds hold 54), 32 from
+// kExpWideLanes lanes on, where the card is full and a lane's idle threads
+// would cost other lanes' time (the two cross between 256 and 512 lanes).
+constexpr int kExpThreads = 64;
+constexpr int kExpWideThreads = 32;
+constexpr long long kExpWideLanes = 512;
 constexpr int kF12Words = 12 * bls::kWords;
+
+namespace sched = bls::sched;
+
+// The constants of a layout into a lane's elements, word by word.
+LANE_FN void load_consts(const uint32_t* words, int n, uint32_t* elems, int t, int threads) {
+  for (int w = t; w < n * bls::kWords; w += threads) {
+    const uint32_t* c = words + (w / bls::kWords) * (bls::kWords + 1);
+    elems[c[0] * bls::kWords + w % bls::kWords] = c[1 + w % bls::kWords];
+  }
+}
+
+// Lane i's Miller inputs: q (2, n, 4, 12) and p (2, n, 2, 12).
+LANE_FN void miller_in(const uint32_t* q, const uint32_t* p, long long n, long long i, uint32_t* elems, int t,
+                       int threads) {
+  load_consts(sched::kMillerConstWords, sched::kMillerConsts, elems, t, threads);
+  for (int w = t; w < 2 * 6 * bls::kWords; w += threads) {
+    const int side = w / (6 * bls::kWords), c = (w / bls::kWords) % 6, j = w % bls::kWords;
+    const uint32_t v = c < 4 ? q[((side * n + i) * 4 + c) * bls::kWords + j]
+                             : p[((side * n + i) * 2 + c - 4) * bls::kWords + j];
+    elems[(c < 4 ? sched::kMillerQ[side * 4 + c] : sched::kMillerP[side * 2 + c - 4]) * bls::kWords + j] = v;
+  }
+}
+
+// 12 elements (an Fp12 in the tower's order) to or from 144 words.
+LANE_FN void f12_in(const uint32_t* src, const uint16_t* at, uint32_t* elems, int t, int threads) {
+  for (int w = t; w < kF12Words; w += threads) {
+    elems[at[w / bls::kWords] * bls::kWords + w % bls::kWords] = src[w];
+  }
+}
+
+LANE_FN void f12_out(const uint32_t* elems, const uint16_t* at, uint32_t* dst, int t, int threads) {
+  for (int w = t; w < kF12Words; w += threads) {
+    dst[w] = elems[at[w / bls::kWords] * bls::kWords + w % bls::kWords];
+  }
+}
 
 }  // namespace
 
@@ -83,40 +152,52 @@ bls_merge_kernel(const uint32_t* __restrict__ pts, const uint8_t* __restrict__ l
   }
 }
 
-__global__ void __launch_bounds__(2 * kMillerLanes)
-bls_miller_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ p, long long n,
-                  uint32_t* __restrict__ out) {
-  __shared__ uint32_t second[kMillerLanes][kF12Words];  // 18 KB
-  const int local = threadIdx.x >> 1;
-  const int side = threadIdx.x & 1;
-  const long long i = static_cast<long long>(blockIdx.x) * kMillerLanes + local;
-  bls::Fp12 f;
-  if (i < n) {
-    const uint32_t* qs = q + (side * n + i) * 4 * bls::kWords;
-    const uint32_t* ps = p + (side * n + i) * 2 * bls::kWords;
-    f = bls::miller_loop(bls::load2(qs), bls::load2(qs + 2 * bls::kWords), bls::load(ps),
-                         bls::load(ps + bls::kWords));
-    if (side == 1) {
-      bls::store12(second[local], f);
+// A schedule's rounds on the block's lane: every round its product phase and
+// one or two store phases, each ending in a barrier of the block (one lane a
+// block).
+template <int kThreads>
+__device__ void run(const uint8_t* seq, int rounds, uint32_t* elems) {
+  const int t = threadIdx.x;
+#pragma unroll 1
+  for (int r = 0; r < rounds; ++r) {
+    const uint32_t rid = seq[r];
+    bls::slot_phase(rid, elems, t, kThreads);
+    __syncthreads();
+    bls::store_phase(rid, 0, elems, t, kThreads);
+    __syncthreads();
+    if (bls::round_stores(rid, 1) != 0) {  // the same for every thread of the block
+      bls::store_phase(rid, 1, elems, t, kThreads);
+      __syncthreads();
     }
-  }
-  __syncthreads();
-  if (i < n && side == 0) {
-    bls::store12(out + i * kF12Words, bls::mul(f, bls::load12(second[local])));
   }
 }
 
-__global__ void __launch_bounds__(kExpLanes)
+__global__ void __launch_bounds__(kMillerThreads)
+bls_miller_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ p, long long n,
+                  uint32_t* __restrict__ out) {
+  __shared__ __align__(16) uint32_t elems[sched::kMillerElems * bls::kWords];  // 10.8 KB
+  const long long i = blockIdx.x;
+  miller_in(q, p, n, i, elems, threadIdx.x, kMillerThreads);
+  __syncthreads();
+  run<kMillerThreads>(sched::kMillerSeq, sched::kMillerRounds, elems);
+  f12_out(elems, sched::kMillerOut, out + i * kF12Words, threadIdx.x, kMillerThreads);
+}
+
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads)
 bls_final_exp_kernel(const uint32_t* __restrict__ f, const uint8_t* __restrict__ gate, long long n,
                      uint8_t* __restrict__ ok, uint32_t* __restrict__ out) {
-  const long long i = static_cast<long long>(blockIdx.x) * kExpLanes + threadIdx.x;
-  if (i >= n) {
-    return;
+  __shared__ __align__(16) uint32_t elems[sched::kExpElems * bls::kWords];
+  const long long i = blockIdx.x;
+  load_consts(sched::kExpConstWords, sched::kExpConsts, elems, threadIdx.x, kThreads);
+  f12_in(f + i * kF12Words, sched::kExpIn, elems, threadIdx.x, kThreads);
+  __syncthreads();
+  run<kThreads>(sched::kExpSeq, sched::kExpRounds, elems);
+  if (threadIdx.x == 0) {
+    ok[i] = gate[i] != 0 && bls::is_one(elems, sched::kExpOut);
   }
-  const bls::Fp12 r = bls::final_exp(bls::load12(f + i * kF12Words));
-  ok[i] = gate[i] != 0 && bls::is_one(r);
   if (out != nullptr) {
-    bls::store12(out + i * kF12Words, r);
+    f12_out(elems, sched::kExpOut, out + i * kF12Words, threadIdx.x, kThreads);
   }
 }
 
@@ -150,34 +231,42 @@ extern "C" int bls_merge(const void* pts, const void* live, long long groups, in
 }
 
 // q: (2, n, 4) field elements (the G2 points of side 0, then side 1); p:
-// (2, n, 2) (the G1 points) -> out: n x 12 field elements (Fp12).
+// (2, n, 2) (the G1 points) -> out: n x 12 field elements (Fp12).  One
+// block a lane.
 extern "C" int bls_miller(const void* q, const void* p, long long n, void* out, void* stream) {
   if (n <= 0) {
     return 0;
   }
-  const long long blocks = (n + kMillerLanes - 1) / kMillerLanes;
-  bls_miller_kernel<<<static_cast<unsigned int>(blocks), 2 * kMillerLanes, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  bls_miller_kernel<<<static_cast<unsigned int>(n), kMillerThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(p), n, static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
 // f: n x 12 field elements, gate: n bytes -> ok: n bytes, and out (n x 12
-// field elements, the exponentiation's result) unless it is null.
+// field elements, the exponentiation's result) unless it is null.  One
+// block a lane, of kExpThreads threads below kExpWideLanes lanes and of
+// kExpWideThreads from there on.
 extern "C" int bls_final_exp(const void* f, const void* gate, long long n, void* ok, void* out,
                              void* stream) {
   if (n <= 0) {
     return 0;
   }
-  const long long blocks = (n + kExpLanes - 1) / kExpLanes;
-  bls_final_exp_kernel<<<static_cast<unsigned int>(blocks), kExpLanes, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(f), static_cast<const uint8_t*>(gate), n,
-      static_cast<uint8_t*>(ok), static_cast<uint32_t*>(out));
+  const auto* fi = static_cast<const uint32_t*>(f);
+  const auto* g = static_cast<const uint8_t*>(gate);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n < kExpWideLanes) {
+    bls_final_exp_kernel<kExpThreads><<<static_cast<unsigned int>(n), kExpThreads, 0, s>>>(
+        fi, g, n, static_cast<uint8_t*>(ok), static_cast<uint32_t*>(out));
+  } else {
+    bls_final_exp_kernel<kExpWideThreads><<<static_cast<unsigned int>(n), kExpWideThreads, 0, s>>>(
+        fi, g, n, static_cast<uint8_t*>(ok), static_cast<uint32_t*>(out));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 #else
+
+#include <vector>
 
 // The kernels' work on the host, lane after lane: the CPU tests' view of the
 // lane arithmetic.  Not used by the port's wrappers.
@@ -207,6 +296,29 @@ void merge_group(const uint32_t* pts, const uint8_t* live, int v, int coords, bo
   *inf = bls::store_affine(out, tree[0], neg_y);
 }
 
+// A schedule's rounds as the kernels run them: phase by phase, the threads
+// of a phase one after another; `elems` stands for the lane's shared memory.
+void run_host(const uint8_t* seq, int rounds, uint32_t* elems, int threads) {
+  for (int r = 0; r < rounds; ++r) {
+    for (int t = 0; t < threads; ++t) {
+      bls::slot_phase(seq[r], elems, t, threads);
+    }
+    for (int phase = 0; phase < 2; ++phase) {
+      for (int t = 0; t < threads; ++t) {
+        bls::store_phase(seq[r], phase, elems, t, threads);
+      }
+    }
+  }
+}
+
+// Each "thread" of a block's word loop, one after another.
+template <class Fn>
+void each_thread(int threads, Fn fn) {
+  for (int t = 0; t < threads; ++t) {
+    fn(t);
+  }
+}
+
 }  // namespace
 
 extern "C" int bls_merge_host(const uint32_t* pts, const uint8_t* live, long long groups, int v,
@@ -224,26 +336,29 @@ extern "C" int bls_merge_host(const uint32_t* pts, const uint8_t* live, long lon
 }
 
 extern "C" int bls_miller_host(const uint32_t* q, const uint32_t* p, long long n, uint32_t* out) {
+  std::vector<uint32_t> elems(sched::kMillerElems * bls::kWords);
   for (long long i = 0; i < n; ++i) {
-    bls::Fp12 f[2];
-    for (int side = 0; side < 2; ++side) {
-      const uint32_t* qs = q + (side * n + i) * 4 * bls::kWords;
-      const uint32_t* ps = p + (side * n + i) * 2 * bls::kWords;
-      f[side] = bls::miller_loop(bls::load2(qs), bls::load2(qs + 2 * bls::kWords), bls::load(ps),
-                                 bls::load(ps + bls::kWords));
-    }
-    bls::store12(out + i * kF12Words, bls::mul(f[0], f[1]));
+    each_thread(kMillerThreads, [&](int t) { miller_in(q, p, n, i, elems.data(), t, kMillerThreads); });
+    run_host(sched::kMillerSeq, sched::kMillerRounds, elems.data(), kMillerThreads);
+    each_thread(kMillerThreads,
+                [&](int t) { f12_out(elems.data(), sched::kMillerOut, out + i * kF12Words, t, kMillerThreads); });
   }
   return 0;
 }
 
 extern "C" int bls_final_exp_host(const uint32_t* f, const uint8_t* gate, long long n, uint8_t* ok,
                                   uint32_t* out) {
+  std::vector<uint32_t> elems(sched::kExpElems * bls::kWords);
+  const int threads = n < kExpWideLanes ? kExpThreads : kExpWideThreads;
   for (long long i = 0; i < n; ++i) {
-    const bls::Fp12 r = bls::final_exp(bls::load12(f + i * kF12Words));
-    ok[i] = gate[i] != 0 && bls::is_one(r);
+    each_thread(threads, [&](int t) {
+      load_consts(sched::kExpConstWords, sched::kExpConsts, elems.data(), t, threads);
+      f12_in(f + i * kF12Words, sched::kExpIn, elems.data(), t, threads);
+    });
+    run_host(sched::kExpSeq, sched::kExpRounds, elems.data(), threads);
+    ok[i] = gate[i] != 0 && bls::is_one(elems.data(), sched::kExpOut);
     if (out != nullptr) {
-      bls::store12(out + i * kF12Words, r);
+      each_thread(threads, [&](int t) { f12_out(elems.data(), sched::kExpOut, out + i * kF12Words, t, threads); });
     }
   }
   return 0;
@@ -264,21 +379,28 @@ extern "C" int bls_fp_inv_host(const uint32_t* a, uint32_t* out, long long n) {
   return 0;
 }
 
-// Fp12 operations on n elements: op 0 a * b, 1 a^2, 2 a^-1, 3 a^p, 4 a^(p^2),
-// 5 a^(p^6).
+// Fp12 operations on n elements through the schedules' rounds (the final
+// exponentiation's layout): op 0 a * b, 1 a^2, 2 a^-1, 3 a^p, 4 a^(p^2),
+// 5 a^(p^6), 6 the cyclotomic square of a, 7 the product of the lines in
+// slots 0, 3 and 5 of a and of b, 8 a times b with b's c1.c0 taken as 0 (a
+// product of two lines).  b is read by ops 0, 7 and 8.
 extern "C" int bls_f12_op_host(int op, const uint32_t* a, const uint32_t* b, uint32_t* out, long long n) {
+  if (op < 0 || op >= sched::kOps) {
+    return 1;
+  }
+  std::vector<uint32_t> elems(sched::kExpElems * bls::kWords);
+  const int first = sched::kOpFirst[op];
   for (long long i = 0; i < n; ++i) {
-    const bls::Fp12 x = bls::load12(a + i * kF12Words);
-    bls::Fp12 r;
-    switch (op) {
-      case 0: r = bls::mul(x, bls::load12(b + i * kF12Words)); break;
-      case 1: r = bls::sqr(x); break;
-      case 2: r = bls::inv(x); break;
-      case 3: r = bls::frob(x, 1); break;
-      case 4: r = bls::frob(x, 2); break;
-      default: r = bls::conj(x); break;
-    }
-    bls::store12(out + i * kF12Words, r);
+    each_thread(kExpThreads, [&](int t) {
+      load_consts(sched::kExpConstWords, sched::kExpConsts, elems.data(), t, kExpThreads);
+      f12_in(a + i * kF12Words, sched::kExpIn, elems.data(), t, kExpThreads);
+      if (b != nullptr) {
+        f12_in(b + i * kF12Words, sched::kExpB, elems.data(), t, kExpThreads);
+      }
+    });
+    run_host(sched::kOpSeq + first, sched::kOpFirst[op + 1] - first, elems.data(), kExpThreads);
+    each_thread(kExpThreads,
+                [&](int t) { f12_out(elems.data(), sched::kExpOut, out + i * kF12Words, t, kExpThreads); });
   }
   return 0;
 }

@@ -1,33 +1,44 @@
-// BLS12-381 lane arithmetic shared by the pairing kernels (bls12_381.cu):
-// the base field, the tower Fp2 / Fp6 / Fp12, Jacobian points on G1 and G2,
-// the ate Miller loop and the final exponentiation, each for one lane.
+// BLS12-381 lane arithmetic of the pairing kernels (bls12_381.cu): the base
+// field in registers, the interpreter of the Miller loop's and the final
+// exponentiation's schedules (bls12_381_schedule.cuh), and the Jacobian
+// points of the merge.
 //
 // Field elements mod p are 12 little-endian 32-bit words in the Montgomery
-// domain with R = 2^384, canonical (< p) after every operation: p < 2^381,
-// so a sum of two elements never leaves 382 bits, and the product is one
-// CIOS Montgomery pass with 64-bit column arithmetic and one conditional
-// subtraction.  The tower and every formula above it are the JAX package's
-// (go_ibft_tpu/ops/bls12_381.py): Fp2 = Fp[u]/(u^2 + 1), Fp6 = Fp2[v]/(v^3 -
-// xi), Fp12 = Fp6[w]/(w^2 - v), xi = 1 + u; the Jacobian doubling and the
-// complete addition of _jac_ops; the Miller loop's doubling and addition
-// lines of _dbl_step and _add_step (the same Jacobian representatives, so
-// the Miller values are the same field elements as the JAX package's and as
-// the port's plain version, ops/bls12_381.py); the final exponentiation's
-// easy part and the 2020/875 hard-part chain, which computes the pairing
-// cubed.
+// domain with R = 2^384, canonical (< p) wherever they are stored: p < 2^381,
+// so a sum of two elements never leaves 382 bits.  The product is a CIOS
+// Montgomery pass fully unrolled on registers, each row two PTX carry chains
+// for a_i b and two for m p (mad.lo.cc / madc.hi.cc), then one conditional
+// subtraction.  Every PTX instruction sits in its own asm statement with a
+// C++ twin on an explicit carry (Carry), so a host build runs the same
+// chains.  The one inversion is Kaliski's binary Montgomery inverse: no
+// product, about 2 x 381 steps of word adds and shifts.
+//
+// The pairing kernels run one lane on a block of threads and keep its values
+// in shared memory as elements (12 words each).  A schedule is a sequence of
+// rounds; in each, every thread forms the two operands of its slot as small
+// integer combinations of elements and multiplies them in registers (phase
+// 1), a barrier, then every thread forms one of the round's stores as a
+// combination of products and elements (phase 3), and a barrier.  A
+// combination sums its terms on a 13-word accumulator with no reduction,
+// starting at a multiple of p above its negative terms, and ends with a few
+// conditional subtractions of 2^k p.  The schedules and the rules that keep
+// the phases free of races are ops/bls_schedule.py's.
 //
 // Everything here also compiles with a host C++ compiler (lane.cuh): the
-// CPU tests build bls12_381.cu with g++ and hold the _host entry points
-// against the host oracle (crypto/bls.py).
+// CPU tests build bls12_381.cu with g++ and run each phase's threads one
+// after another over a host array that stands for shared memory.
 
 #pragma once
 
+#include "bls12_381_schedule.cuh"
 #include "lane.cuh"
 
 #if defined(__CUDACC__)
 #define BLS_CALL __device__ __noinline__
+#define BLS_CONST __host__ __device__ constexpr
 #else
 #define BLS_CALL inline
+#define BLS_CONST constexpr
 #endif
 
 namespace bls {
@@ -40,90 +51,175 @@ struct Fp {
 struct Fp2 {
   Fp c0, c1;
 };
-struct Fp6 {
-  Fp2 c0, c1, c2;
-};
-struct Fp12 {
-  Fp6 c0, c1;
-};
 // A Jacobian point (x / z^2, y / z^3); z == 0 is the point at infinity.
 template <class F>
 struct Jac {
   F x, y, z;
 };
 
-LANE_TABLE uint32_t kP[kWords] = {0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu, 0xf6b0f624u, 0x6730d2a0u,
+// Word i of p (0 beyond its 12 words), and of R mod p: one in the Montgomery
+// domain.  Folded into immediates where i is a constant.
+BLS_CONST uint32_t p_word(int i) {
+  constexpr uint32_t w[kWords] = {0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu, 0xf6b0f624u, 0x6730d2a0u,
                                   0xf38512bfu, 0x64774b84u, 0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
-// R mod p: one in the Montgomery domain.
-LANE_TABLE uint32_t kOne[kWords] = {0x0002fffdu, 0x76090000u, 0xc40c0002u, 0xebf4000bu, 0x53c758bau, 0x5f489857u,
-                                    0x70525745u, 0x77ce5853u, 0xa256ec6du, 0x5c071a97u, 0xfa80e493u, 0x15f65ec3u};
-// p - 2: the exponent of the Fermat inverse.
-LANE_TABLE uint32_t kPMinus2[kWords] = {0xffffaaa9u, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu, 0xf6b0f624u, 0x6730d2a0u,
-                                        0xf38512bfu, 0x64774b84u, 0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
-// gamma[n-1][k] = xi^(k (p^n - 1) / 6), n = 1, 2, k < 6, in the Montgomery domain:
-// the Frobenius coefficients of the w-basis.
-LANE_TABLE uint32_t kGamma[2][6][2][kWords] = {
-    {
-        {{0x0002fffdu, 0x76090000u, 0xc40c0002u, 0xebf4000bu, 0x53c758bau, 0x5f489857u,
-          0x70525745u, 0x77ce5853u, 0xa256ec6du, 0x5c071a97u, 0xfa80e493u, 0x15f65ec3u},
-         {0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u,
-          0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u}},
-        {{0xb319d465u, 0x07089552u, 0xb50a8313u, 0xc6695f92u, 0xd117228fu, 0x97e83cccu,
-          0xb2dc29eeu, 0xa35baecau, 0x5daace4du, 0x1ce393eau, 0xb0fb66ebu, 0x08f2220fu},
-         {0x4ce5d646u, 0xb2f66aadu, 0xfc497cecu, 0x5842a06bu, 0x2599d394u, 0xcf4895d4u,
-          0x40a8e8d0u, 0xc11b9cbau, 0xe5a0de89u, 0x2e3813cbu, 0x88847fafu, 0x110eefdau}},
-        {{0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u,
-          0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u},
-         {0x8671f071u, 0xcd03c9e4u, 0x1fcda5d2u, 0x5dab2246u, 0xd3851b95u, 0x587042afu,
-          0x01bacb9eu, 0x8eb60ebeu, 0x83d050d2u, 0x03f97d6eu, 0x54638741u, 0x18f02065u}},
-        {{0x5aa30fdau, 0x7bcfa7a2u, 0x2a927e7cu, 0xdc17dec1u, 0x6b4ebef1u, 0x2f088dd8u,
-          0xda74d4a7u, 0xd1ca2087u, 0x96cebc1du, 0x2da25966u, 0xbbfd87d2u, 0x0e2b7eedu},
-         {0x5aa30fdau, 0x7bcfa7a2u, 0x2a927e7cu, 0xdc17dec1u, 0x6b4ebef1u, 0x2f088dd8u,
-          0xda74d4a7u, 0xd1ca2087u, 0x96cebc1du, 0x2da25966u, 0xbbfd87d2u, 0x0e2b7eedu}},
-        {{0x867545c3u, 0x890dc9e4u, 0x3285a5d5u, 0x2af32253u, 0x309b7e2cu, 0x50880866u,
-          0x7e881024u, 0xa20d1b8cu, 0xe2db9068u, 0x14e4f04fu, 0x1564853au, 0x14e56d3fu},
-         {0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u,
-          0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u}},
-        {{0x0dbce43fu, 0x82d83cf5u, 0xdf9d018fu, 0xa2813e53u, 0x3c65e181u, 0xc6f0caa5u,
-          0x8d50fe95u, 0x7525cf52u, 0xf4798a6bu, 0x4a85ed50u, 0x6cf8eebdu, 0x171da0fdu},
-         {0xf242c66cu, 0x3726c30au, 0xd1b6fe70u, 0x7c2ac1aau, 0xba4b14a2u, 0xa04007fbu,
-          0x66341429u, 0xef517c32u, 0x4ed2226bu, 0x0095ba65u, 0xcc86f7ddu, 0x02e370ecu}},
-    },
-    {
-        {{0x0002fffdu, 0x76090000u, 0xc40c0002u, 0xebf4000bu, 0x53c758bau, 0x5f489857u,
-          0x70525745u, 0x77ce5853u, 0xa256ec6du, 0x5c071a97u, 0xfa80e493u, 0x15f65ec3u},
-         {0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u,
-          0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u}},
-        {{0x798dba3au, 0xecfb361bu, 0x91865a2cu, 0xc100ddb8u, 0x232bda8eu, 0x0ec08ff1u,
-          0xf1ca4721u, 0xd5c13cc6u, 0xbf7b5c04u, 0x47222a47u, 0xe51c5f59u, 0x0110f184u},
-         {0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u,
-          0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u}},
-        {{0x798a64e8u, 0x30f1361bu, 0x7ece5a2au, 0xf3b8ddabu, 0xc61577f7u, 0x16a8ca3au,
-          0x74fd029bu, 0xc26a2ff8u, 0x60701c6eu, 0x3636b766u, 0x241b6160u, 0x051ba4abu},
-         {0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u,
-          0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u}},
-        {{0xfffcaaaeu, 0x43f5ffffu, 0xed47fffdu, 0x32b7fff2u, 0xa2e99d69u, 0x07e83a49u,
-          0x8332bb7au, 0xeca8f331u, 0xa0f4c069u, 0xef148d1eu, 0x3eff0206u, 0x040ab326u},
-         {0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u,
-          0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u}},
-        {{0x8671f071u, 0xcd03c9e4u, 0x1fcda5d2u, 0x5dab2246u, 0xd3851b95u, 0x587042afu,
-          0x01bacb9eu, 0x8eb60ebeu, 0x83d050d2u, 0x03f97d6eu, 0x54638741u, 0x18f02065u},
-         {0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u,
-          0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u}},
-        {{0x867545c3u, 0x890dc9e4u, 0x3285a5d5u, 0x2af32253u, 0x309b7e2cu, 0x50880866u,
-          0x7e881024u, 0xa20d1b8cu, 0xe2db9068u, 0x14e4f04fu, 0x1564853au, 0x14e56d3fu},
-         {0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u,
-          0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u}},
-    },
-};
+  return i < 0 || i >= kWords ? 0u : w[i];
+}
+BLS_CONST uint32_t one_word(int i) {
+  constexpr uint32_t w[kWords] = {0x0002fffdu, 0x76090000u, 0xc40c0002u, 0xebf4000bu, 0x53c758bau, 0x5f489857u,
+                                  0x70525745u, 0x77ce5853u, 0xa256ec6du, 0x5c071a97u, 0xfa80e493u, 0x15f65ec3u};
+  return w[i];
+}
+// Word i (0 .. 12) of 2^k p, 0 <= k < 32.
+BLS_CONST uint32_t pmul_word(int k, int i) {
+  return static_cast<uint32_t>(((static_cast<uint64_t>(p_word(i)) << 32 | p_word(i - 1)) << k) >> 32);
+}
 constexpr uint32_t kPInv = 0xfffcfffdu;  // -p^-1 mod 2^32
-// |x|, the curve parameter's magnitude (the parameter is -x).
-constexpr uint64_t kX = 0xd201000000010000ull;
+
+// -- PTX carry chains ------------------------------------------------------
+//
+// One instruction per asm statement, the carry flag running from one to the
+// next: volatile keeps their order, and no PTX that the compiler emits
+// touches the flag.  One instruction per statement also means every input is
+// read before the output is written, so the register sharing that inline
+// asm allows between an output and an input of the same value is harmless.
+
+// The carry flag: PTX keeps it in CC.CF; the host twin in cf.
+struct Carry {
+#if !defined(__CUDA_ARCH__)
+  uint32_t cf = 0;
+#endif
+};
+
+#if defined(__CUDA_ARCH__)
+#define BLS_PTX3(op)                                                                   \
+  uint32_t d;                                                                          \
+  asm volatile(op " %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));              \
+  return d
+#define BLS_PTX2(op)                                                                   \
+  uint32_t d;                                                                          \
+  asm volatile(op " %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));                          \
+  return d
+#endif
+
+// lo(a b) + c, carry out.
+LANE_FN uint32_t mad_lo_cc(Carry& k, uint32_t a, uint32_t b, uint32_t c) {
+#if defined(__CUDA_ARCH__)
+  BLS_PTX3("mad.lo.cc.u32");
+#else
+  const uint64_t s = static_cast<uint64_t>(a * b) + c;
+  k.cf = static_cast<uint32_t>(s >> 32);
+  return static_cast<uint32_t>(s);
+#endif
+}
+
+// lo(a b) + c + carry, carry out.
+LANE_FN uint32_t madc_lo_cc(Carry& k, uint32_t a, uint32_t b, uint32_t c) {
+#if defined(__CUDA_ARCH__)
+  BLS_PTX3("madc.lo.cc.u32");
+#else
+  const uint64_t s = static_cast<uint64_t>(a * b) + c + k.cf;
+  k.cf = static_cast<uint32_t>(s >> 32);
+  return static_cast<uint32_t>(s);
+#endif
+}
+
+// hi(a b) + c, carry out.
+LANE_FN uint32_t mad_hi_cc(Carry& k, uint32_t a, uint32_t b, uint32_t c) {
+#if defined(__CUDA_ARCH__)
+  BLS_PTX3("mad.hi.cc.u32");
+#else
+  const uint64_t s = ((static_cast<uint64_t>(a) * b) >> 32) + c;
+  k.cf = static_cast<uint32_t>(s >> 32);
+  return static_cast<uint32_t>(s);
+#endif
+}
+
+// hi(a b) + c + carry, carry out.
+LANE_FN uint32_t madc_hi_cc(Carry& k, uint32_t a, uint32_t b, uint32_t c) {
+#if defined(__CUDA_ARCH__)
+  BLS_PTX3("madc.hi.cc.u32");
+#else
+  const uint64_t s = ((static_cast<uint64_t>(a) * b) >> 32) + c + k.cf;
+  k.cf = static_cast<uint32_t>(s >> 32);
+  return static_cast<uint32_t>(s);
+#endif
+}
+
+// hi(a b) + c + carry; the carry out is dropped (the caller knows it is 0).
+LANE_FN uint32_t madc_hi(Carry& k, uint32_t a, uint32_t b, uint32_t c) {
+#if defined(__CUDA_ARCH__)
+  BLS_PTX3("madc.hi.u32");
+#else
+  return static_cast<uint32_t>(((static_cast<uint64_t>(a) * b) >> 32) + c + k.cf);
+#endif
+}
+
+// a + b, carry out.
+LANE_FN uint32_t add_cc(Carry& k, uint32_t a, uint32_t b) {
+#if defined(__CUDA_ARCH__)
+  BLS_PTX2("add.cc.u32");
+#else
+  const uint64_t s = static_cast<uint64_t>(a) + b;
+  k.cf = static_cast<uint32_t>(s >> 32);
+  return static_cast<uint32_t>(s);
+#endif
+}
+
+// a + b + carry, carry out.
+LANE_FN uint32_t addc_cc(Carry& k, uint32_t a, uint32_t b) {
+#if defined(__CUDA_ARCH__)
+  BLS_PTX2("addc.cc.u32");
+#else
+  const uint64_t s = static_cast<uint64_t>(a) + b + k.cf;
+  k.cf = static_cast<uint32_t>(s >> 32);
+  return static_cast<uint32_t>(s);
+#endif
+}
+
+// a + b + carry.
+LANE_FN uint32_t addc(Carry& k, uint32_t a, uint32_t b) {
+#if defined(__CUDA_ARCH__)
+  BLS_PTX2("addc.u32");
+#else
+  return a + b + k.cf;
+#endif
+}
+
+// a - b, borrow out.
+LANE_FN uint32_t sub_cc(Carry& k, uint32_t a, uint32_t b) {
+#if defined(__CUDA_ARCH__)
+  BLS_PTX2("sub.cc.u32");
+#else
+  k.cf = a < b;
+  return a - b;
+#endif
+}
+
+// a - b - borrow, borrow out.
+LANE_FN uint32_t subc_cc(Carry& k, uint32_t a, uint32_t b) {
+#if defined(__CUDA_ARCH__)
+  BLS_PTX2("subc.cc.u32");
+#else
+  const uint64_t d = static_cast<uint64_t>(a) - b - k.cf;
+  k.cf = static_cast<uint32_t>(d >> 63);
+  return static_cast<uint32_t>(d);
+#endif
+}
+
+// a - b - borrow.
+LANE_FN uint32_t subc(Carry& k, uint32_t a, uint32_t b) {
+#if defined(__CUDA_ARCH__)
+  BLS_PTX2("subc.u32");
+#else
+  return a - b - k.cf;
+#endif
+}
 
 // -- the base field ----------------------------------------------------------
 
 LANE_FN Fp fp_zero() {
   Fp r;
+#pragma unroll
   for (int i = 0; i < kWords; ++i) {
     r.w[i] = 0;
   }
@@ -132,136 +228,411 @@ LANE_FN Fp fp_zero() {
 
 LANE_FN Fp fp_one() {
   Fp r;
+#pragma unroll
   for (int i = 0; i < kWords; ++i) {
-    r.w[i] = kOne[i];
+    r.w[i] = one_word(i);
   }
   return r;
 }
 
 LANE_FN bool is_zero(const Fp& a) {
   uint32_t acc = 0;
+#pragma unroll
   for (int i = 0; i < kWords; ++i) {
     acc |= a.w[i];
   }
   return acc == 0;
 }
 
-LANE_FN bool equal(const Fp& a, const Fp& b) {
-  uint32_t acc = 0;
-  for (int i = 0; i < kWords; ++i) {
-    acc |= a.w[i] ^ b.w[i];
+// s - p where s (< 2p) is at least p, else s.
+LANE_FN Fp reduce_once(const Fp& s) {
+  Carry k;
+  Fp d;
+  d.w[0] = sub_cc(k, s.w[0], p_word(0));
+#pragma unroll
+  for (int i = 1; i < kWords; ++i) {
+    d.w[i] = subc_cc(k, s.w[i], p_word(i));
   }
-  return acc == 0;
-}
-
-// a - p where a (with a carry word hi above it) is at least p, else a; a < 2p.
-LANE_FN Fp reduce_once(const Fp& a, uint32_t hi) {
-  Fp t;
-  uint64_t borrow = 0;
+  const uint32_t borrow = subc(k, 0, 0);  // all ones where s < p
+#pragma unroll
   for (int i = 0; i < kWords; ++i) {
-    const uint64_t d = static_cast<uint64_t>(a.w[i]) - kP[i] - borrow;
-    t.w[i] = static_cast<uint32_t>(d);
-    borrow = d >> 63;
+    d.w[i] = borrow ? s.w[i] : d.w[i];
   }
-  return (hi != 0 || borrow == 0) ? t : a;
+  return d;
 }
 
 LANE_FN Fp add(const Fp& a, const Fp& b) {
+  Carry k;
   Fp s;
-  uint64_t c = 0;
-  for (int i = 0; i < kWords; ++i) {
-    c += static_cast<uint64_t>(a.w[i]) + b.w[i];
-    s.w[i] = static_cast<uint32_t>(c);
-    c >>= 32;
+  s.w[0] = add_cc(k, a.w[0], b.w[0]);
+#pragma unroll
+  for (int i = 1; i < kWords - 1; ++i) {
+    s.w[i] = addc_cc(k, a.w[i], b.w[i]);
   }
-  return reduce_once(s, static_cast<uint32_t>(c));
+  s.w[kWords - 1] = addc(k, a.w[kWords - 1], b.w[kWords - 1]);  // < 2^382: no carry out
+  return reduce_once(s);
 }
 
 LANE_FN Fp sub(const Fp& a, const Fp& b) {
+  Carry k;
   Fp d;
-  uint64_t borrow = 0;
-  for (int i = 0; i < kWords; ++i) {
-    const uint64_t t = static_cast<uint64_t>(a.w[i]) - b.w[i] - borrow;
-    d.w[i] = static_cast<uint32_t>(t);
-    borrow = t >> 63;
+  d.w[0] = sub_cc(k, a.w[0], b.w[0]);
+#pragma unroll
+  for (int i = 1; i < kWords; ++i) {
+    d.w[i] = subc_cc(k, a.w[i], b.w[i]);
   }
-  if (borrow) {
-    uint64_t c = 0;
-    for (int i = 0; i < kWords; ++i) {
-      c += static_cast<uint64_t>(d.w[i]) + kP[i];
-      d.w[i] = static_cast<uint32_t>(c);
-      c >>= 32;
-    }
+  const uint32_t borrow = subc(k, 0, 0);  // all ones where a < b: add p back
+  d.w[0] = add_cc(k, d.w[0], p_word(0) & borrow);
+#pragma unroll
+  for (int i = 1; i < kWords - 1; ++i) {
+    d.w[i] = addc_cc(k, d.w[i], p_word(i) & borrow);
   }
+  d.w[kWords - 1] = addc(k, d.w[kWords - 1], p_word(kWords - 1) & borrow);
   return d;
 }
 
 LANE_FN Fp neg(const Fp& a) { return sub(fp_zero(), a); }
 
-// a * b * 2^-384 mod p (CIOS: one word of a per pass, then one Montgomery
-// step); inputs and output canonical.
-BLS_CALL Fp mul(const Fp& a, const Fp& b) {
-  uint32_t t[kWords + 2];
-  for (int i = 0; i < kWords + 2; ++i) {
-    t[i] = 0;
+// a b 2^-384 mod p, canonical for canonical inputs: 12 CIOS rows on a 13-word
+// accumulator t < 2p, each t += a_i b (low halves, then high halves a word
+// up) and t += m p with m = -t_0 p^-1 mod 2^32 (the low word becomes 0), then
+// a shift by one word.  The sums stay below 2^416, so no chain carries out
+// of t_12.
+LANE_FN Fp mul(const Fp& a, const Fp& b) {
+  uint32_t t[kWords + 1];
+#pragma unroll
+  for (int j = 0; j <= kWords; ++j) {
+    t[j] = 0;
   }
+  Carry k;
+#pragma unroll
   for (int i = 0; i < kWords; ++i) {
-    uint64_t c = 0;
-    for (int j = 0; j < kWords; ++j) {
-      c += static_cast<uint64_t>(a.w[i]) * b.w[j] + t[j];
-      t[j] = static_cast<uint32_t>(c);
-      c >>= 32;
-    }
-    c += t[kWords];
-    t[kWords] = static_cast<uint32_t>(c);
-    t[kWords + 1] = static_cast<uint32_t>(c >> 32);
-    const uint32_t m = t[0] * kPInv;
-    c = (static_cast<uint64_t>(m) * kP[0] + t[0]) >> 32;
+    const uint32_t ai = a.w[i];
+    t[0] = mad_lo_cc(k, ai, b.w[0], t[0]);
+#pragma unroll
     for (int j = 1; j < kWords; ++j) {
-      c += static_cast<uint64_t>(m) * kP[j] + t[j];
-      t[j - 1] = static_cast<uint32_t>(c);
-      c >>= 32;
+      t[j] = madc_lo_cc(k, ai, b.w[j], t[j]);
     }
-    c += t[kWords];
-    t[kWords - 1] = static_cast<uint32_t>(c);
-    t[kWords] = t[kWords + 1] + static_cast<uint32_t>(c >> 32);
+    t[kWords] = addc(k, t[kWords], 0);
+    t[1] = mad_hi_cc(k, ai, b.w[0], t[1]);
+#pragma unroll
+    for (int j = 1; j < kWords - 1; ++j) {
+      t[j + 1] = madc_hi_cc(k, ai, b.w[j], t[j + 1]);
+    }
+    t[kWords] = madc_hi(k, ai, b.w[kWords - 1], t[kWords]);
+    const uint32_t m = t[0] * kPInv;
+    t[0] = mad_lo_cc(k, m, p_word(0), t[0]);
+#pragma unroll
+    for (int j = 1; j < kWords; ++j) {
+      t[j] = madc_lo_cc(k, m, p_word(j), t[j]);
+    }
+    t[kWords] = addc(k, t[kWords], 0);
+    t[1] = mad_hi_cc(k, m, p_word(0), t[1]);
+#pragma unroll
+    for (int j = 1; j < kWords - 1; ++j) {
+      t[j + 1] = madc_hi_cc(k, m, p_word(j), t[j + 1]);
+    }
+    t[kWords] = madc_hi(k, m, p_word(kWords - 1), t[kWords]);
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) {
+      t[j] = t[j + 1];
+    }
+    t[kWords] = 0;
   }
   Fp r;
-  for (int i = 0; i < kWords; ++i) {
-    r.w[i] = t[i];
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) {
+    r.w[j] = t[j];
   }
-  return reduce_once(r, t[kWords]);
+  return reduce_once(r);
 }
 
 LANE_FN Fp sqr(const Fp& a) { return mul(a, a); }
 
-// a^(p-2) (Fermat): the inverse of a nonzero a, and 0 for 0.
-BLS_CALL Fp inv(const Fp& a) {
-  Fp acc = fp_one();
-  for (int i = kWords - 1; i >= 0; --i) {
-    for (int b = 31; b >= 0; --b) {
-      acc = sqr(acc);
-      if ((kPMinus2[i] >> b) & 1u) {
-        acc = mul(acc, a);
+// -- Kaliski's inverse ----------------------------------------------------------
+
+LANE_FN void shr1(uint32_t* x) {
+#pragma unroll
+  for (int i = 0; i < kWords - 1; ++i) {
+    x[i] = (x[i] >> 1) | (x[i + 1] << 31);
+  }
+  x[kWords - 1] >>= 1;
+}
+
+LANE_FN void shl1(uint32_t* x) {
+#pragma unroll
+  for (int i = kWords - 1; i > 0; --i) {
+    x[i] = (x[i] << 1) | (x[i - 1] >> 31);
+  }
+  x[0] <<= 1;
+}
+
+// x += y (no carry out: both stay below 2^383).
+LANE_FN void add_to(uint32_t* x, const uint32_t* y) {
+  Carry k;
+  x[0] = add_cc(k, x[0], y[0]);
+#pragma unroll
+  for (int i = 1; i < kWords - 1; ++i) {
+    x[i] = addc_cc(k, x[i], y[i]);
+  }
+  x[kWords - 1] = addc(k, x[kWords - 1], y[kWords - 1]);
+}
+
+// x -= y where x >= y.
+LANE_FN void sub_from(uint32_t* x, const uint32_t* y) {
+  Carry k;
+  x[0] = sub_cc(k, x[0], y[0]);
+#pragma unroll
+  for (int i = 1; i < kWords - 1; ++i) {
+    x[i] = subc_cc(k, x[i], y[i]);
+  }
+  x[kWords - 1] = subc(k, x[kWords - 1], y[kWords - 1]);
+}
+
+LANE_FN bool greater(const uint32_t* x, const uint32_t* y) {
+  Carry k;
+  (void)sub_cc(k, y[0], x[0]);
+#pragma unroll
+  for (int i = 1; i < kWords; ++i) {
+    (void)subc_cc(k, y[i], x[i]);
+  }
+  return subc(k, 0, 0) != 0;  // y - x borrows
+}
+
+// a^-1 in the Montgomery domain (a = A R: returns A^-1 R), and 0 for 0.
+// Kaliski's almost inverse on (u, v) = (p, a) with p = u s + v r gives
+// x = a^-1 2^k mod p for 381 <= k <= 762 (r and s stay below 2p); then
+// 768 - k modular doublings make it a^-1 2^768 = A^-1 R.
+LANE_FN Fp inv(const Fp& a) {
+  if (is_zero(a)) {
+    return a;
+  }
+  uint32_t u[kWords], v[kWords], r[kWords], s[kWords];
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    u[i] = p_word(i);
+    v[i] = a.w[i];
+    r[i] = 0;
+    s[i] = i == 0;
+  }
+  int k = 0;
+  for (;;) {
+    uint32_t any = 0;
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) {
+      any |= v[i];
+    }
+    if (any == 0) {
+      break;
+    }
+    if ((u[0] & 1u) == 0) {
+      shr1(u);
+      shl1(s);
+    } else if ((v[0] & 1u) == 0) {
+      shr1(v);
+      shl1(r);
+    } else if (greater(u, v)) {
+      sub_from(u, v);
+      shr1(u);
+      add_to(r, s);
+      shl1(s);
+    } else {
+      sub_from(v, u);
+      shr1(v);
+      add_to(s, r);
+      shl1(r);
+    }
+    ++k;
+  }
+  Fp x;
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    x.w[i] = r[i];
+  }
+  x = reduce_once(x);  // r < 2p
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    u[i] = p_word(i);
+  }
+  sub_from(u, x.w);  // p - r = a^-1 2^k
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    x.w[i] = u[i];
+  }
+  for (; k < 2 * 384; ++k) {
+    x = add(x, x);
+  }
+  return x;
+}
+
+// -- elements in shared memory and the schedules' interpreter -----------------
+
+LANE_FN Fp load(const uint32_t* src) {
+  Fp r;
+#if defined(__CUDA_ARCH__)
+  const uint4* q = reinterpret_cast<const uint4*>(src);  // elements are 16-byte aligned
+#pragma unroll
+  for (int i = 0; i < kWords / 4; ++i) {
+    const uint4 x = q[i];
+    r.w[4 * i] = x.x;
+    r.w[4 * i + 1] = x.y;
+    r.w[4 * i + 2] = x.z;
+    r.w[4 * i + 3] = x.w;
+  }
+#else
+  for (int i = 0; i < kWords; ++i) {
+    r.w[i] = src[i];
+  }
+#endif
+  return r;
+}
+
+LANE_FN void store(uint32_t* dst, const Fp& a) {
+#if defined(__CUDA_ARCH__)
+  uint4* q = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+  for (int i = 0; i < kWords / 4; ++i) {
+    q[i] = make_uint4(a.w[4 * i], a.w[4 * i + 1], a.w[4 * i + 2], a.w[4 * i + 3]);
+  }
+#else
+  for (int i = 0; i < kWords; ++i) {
+    dst[i] = a.w[i];
+  }
+#endif
+}
+
+constexpr int kAccWords = kWords + 1;
+
+// acc = acc - 2^k p where acc >= 2^k p.
+LANE_FN void acc_reduce(uint32_t* acc, int k) {
+  Carry c;
+  uint32_t d[kAccWords];
+  d[0] = sub_cc(c, acc[0], pmul_word(k, 0));
+#pragma unroll
+  for (int i = 1; i < kAccWords; ++i) {
+    d[i] = subc_cc(c, acc[i], pmul_word(k, i));
+  }
+  const uint32_t borrow = subc(c, 0, 0);
+#pragma unroll
+  for (int i = 0; i < kAccWords; ++i) {
+    acc[i] = borrow ? acc[i] : d[i];
+  }
+}
+
+// acc += x, or acc -= x where mask is all ones: acc + ~x + 1 on 13 words
+// (one path for both signs, so a warp's threads do not diverge on them).
+LANE_FN void acc_add(uint32_t* acc, const Fp& x, uint32_t mask) {
+  Carry k;
+  (void)add_cc(k, mask & 1u, 0xffffffffu);  // carry := 1 for a subtraction
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    acc[i] = addc_cc(k, acc[i], x.w[i] ^ mask);
+  }
+  acc[kWords] = addc(k, acc[kWords], mask);
+}
+
+constexpr int kBatch = 4;  // terms whose loads are issued together
+
+// The canonical value of a form (a descriptor of sched::kTerms, see the
+// schedule header) over a lane's elements: its terms' loads a batch at a
+// time, then their sums on the accumulator.
+LANE_FN Fp eval(uint32_t form, const uint32_t* elems) {
+  const uint32_t first = form >> 14, terms = (form >> 6) & 0xffu, offset = (form >> 3) & 7u, steps = form & 7u;
+  uint32_t acc[kAccWords];
+  const int shift = offset ? static_cast<int>(offset) - 1 : 0;
+  const uint32_t mask = offset ? 0xffffffffu : 0u;
+#pragma unroll
+  for (int i = 0; i < kAccWords; ++i) {
+    acc[i] = static_cast<uint32_t>(((static_cast<uint64_t>(p_word(i)) << 32 | p_word(i - 1)) << shift) >> 32) & mask;
+  }
+#pragma unroll 1
+  for (uint32_t n = 0; n < terms; n += kBatch) {
+    uint32_t term[kBatch];
+    Fp x[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      term[j] = n + j < terms ? sched::kTerms[first + n + j] : 8u;  // element 0, coefficient 0
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      x[j] = load(elems + (term[j] >> 4) * kWords);
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int c = static_cast<int>(term[j] & 15u) - 8;
+      const uint32_t sign = c < 0 ? 0xffffffffu : 0u;
+#pragma unroll 1
+      for (int r = c < 0 ? -c : c; r > 0; --r) {
+        acc_add(acc, x[j], sign);
       }
     }
   }
-  return acc;
+#pragma unroll
+  for (int s = sched::kMaxSteps - 1; s >= 0; --s) {
+    if (s < static_cast<int>(steps)) {
+      acc_reduce(acc, s);
+    }
+  }
+  Fp r;
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    r.w[i] = acc[i];
+  }
+  return r;
 }
 
-// -- Fp2 = Fp[u] / (u^2 + 1) -----------------------------------------------
+// Round `rid`'s counts: slots, first-phase stores, second-phase stores, and
+// whether it inverts.
+LANE_FN uint32_t round_slots(uint32_t rid) { return sched::kRounds[3 * rid + 2] & 0xffu; }
+LANE_FN uint32_t round_stores(uint32_t rid, int phase) {
+  return (sched::kRounds[3 * rid + 2] >> (8 + 8 * phase)) & 0xffu;
+}
+
+// Phase 1 of round `rid` for thread t of `threads`: its slots' products into
+// the product region.
+LANE_FN void slot_phase(uint32_t rid, uint32_t* elems, int t, int threads) {
+  const uint32_t first = sched::kRounds[3 * rid], n = round_slots(rid);
+#pragma unroll 1
+  for (uint32_t s = t; s < n; s += threads) {
+    const Fp a = eval(sched::kSlotForms[2 * (first + s)], elems);
+    const Fp b = eval(sched::kSlotForms[2 * (first + s) + 1], elems);
+    store(elems + s * kWords, mul(a, b));
+  }
+}
+
+// Store phase 0 or 1 of round `rid`: its stores (phase 0: the short stores
+// and the parts of the long ones; phase 1: the sums of the parts).  An
+// inverting round's one store is inverted.
+LANE_FN void store_phase(uint32_t rid, int phase, uint32_t* elems, int t, int threads) {
+  const uint32_t first = sched::kRounds[3 * rid + 1] + (phase ? round_stores(rid, 0) : 0u);
+  const uint32_t n = round_stores(rid, phase);
+  const bool invert = (sched::kRounds[3 * rid + 2] >> 24) == static_cast<uint32_t>(sched::kInvert);
+#pragma unroll 1
+  for (uint32_t s = t; s < n; s += threads) {
+    const Fp v = eval(sched::kStoreForms[2 * (first + s) + 1], elems);
+    store(elems + sched::kStoreForms[2 * (first + s)] * kWords, invert ? inv(v) : v);
+  }
+}
+
+// Whether the Fp12 at these 12 elements is one.
+LANE_FN bool is_one(const uint32_t* elems, const uint16_t* at) {
+  uint32_t diff = 0;
+  for (int k = 0; k < 12; ++k) {
+    for (int i = 0; i < kWords; ++i) {
+      diff |= elems[at[k] * kWords + i] ^ (k == 0 ? one_word(i) : 0u);
+    }
+  }
+  return diff == 0;
+}
+
+// -- Fp2 and Jacobian points: the merge's arithmetic ---------------------------
 
 LANE_FN Fp2 f2_zero() { return Fp2{fp_zero(), fp_zero()}; }
 LANE_FN Fp2 f2_one() { return Fp2{fp_one(), fp_zero()}; }
 LANE_FN bool is_zero(const Fp2& a) { return is_zero(a.c0) && is_zero(a.c1); }
-LANE_FN bool equal(const Fp2& a, const Fp2& b) { return equal(a.c0, b.c0) && equal(a.c1, b.c1); }
 LANE_FN Fp2 add(const Fp2& a, const Fp2& b) { return Fp2{add(a.c0, b.c0), add(a.c1, b.c1)}; }
 LANE_FN Fp2 sub(const Fp2& a, const Fp2& b) { return Fp2{sub(a.c0, b.c0), sub(a.c1, b.c1)}; }
 LANE_FN Fp2 neg(const Fp2& a) { return Fp2{neg(a.c0), neg(a.c1)}; }
-LANE_FN Fp2 conj(const Fp2& a) { return Fp2{a.c0, neg(a.c1)}; }
-// Times xi = 1 + u.
-LANE_FN Fp2 mul_xi(const Fp2& a) { return Fp2{sub(a.c0, a.c1), add(a.c0, a.c1)}; }
-LANE_FN Fp2 mul_fp(const Fp2& a, const Fp& s) { return Fp2{mul(a.c0, s), mul(a.c1, s)}; }
 
 BLS_CALL Fp2 mul(const Fp2& a, const Fp2& b) {
   const Fp t0 = mul(a.c0, b.c0);
@@ -289,92 +660,6 @@ LANE_FN F muli(const F& a, int k) {
   }
   return r;
 }
-
-// -- Fp6 = Fp2[v] / (v^3 - xi), Fp12 = Fp6[w] / (w^2 - v) -----------------
-
-LANE_FN Fp6 f6_zero() { return Fp6{f2_zero(), f2_zero(), f2_zero()}; }
-LANE_FN Fp6 add(const Fp6& a, const Fp6& b) { return Fp6{add(a.c0, b.c0), add(a.c1, b.c1), add(a.c2, b.c2)}; }
-LANE_FN Fp6 sub(const Fp6& a, const Fp6& b) { return Fp6{sub(a.c0, b.c0), sub(a.c1, b.c1), sub(a.c2, b.c2)}; }
-LANE_FN Fp6 neg(const Fp6& a) { return Fp6{neg(a.c0), neg(a.c1), neg(a.c2)}; }
-// Times v: (a0, a1, a2) -> (xi a2, a0, a1).
-LANE_FN Fp6 mul_v(const Fp6& a) { return Fp6{mul_xi(a.c2), a.c0, a.c1}; }
-
-BLS_CALL Fp6 mul(const Fp6& a, const Fp6& b) {
-  const Fp2 t0 = mul(a.c0, b.c0);
-  const Fp2 t1 = mul(a.c1, b.c1);
-  const Fp2 t2 = mul(a.c2, b.c2);
-  const Fp2 c0 = add(t0, mul_xi(sub(mul(add(a.c1, a.c2), add(b.c1, b.c2)), add(t1, t2))));
-  const Fp2 c1 = add(sub(mul(add(a.c0, a.c1), add(b.c0, b.c1)), add(t0, t1)), mul_xi(t2));
-  const Fp2 c2 = add(sub(mul(add(a.c0, a.c2), add(b.c0, b.c2)), add(t0, t2)), t1);
-  return Fp6{c0, c1, c2};
-}
-
-BLS_CALL Fp6 inv(const Fp6& a) {
-  const Fp2 c0 = sub(sqr(a.c0), mul_xi(mul(a.c1, a.c2)));
-  const Fp2 c1 = sub(mul_xi(sqr(a.c2)), mul(a.c0, a.c1));
-  const Fp2 c2 = sub(sqr(a.c1), mul(a.c0, a.c2));
-  const Fp2 t = inv(add(mul(a.c0, c0), mul_xi(add(mul(a.c1, c2), mul(a.c2, c1)))));
-  return Fp6{mul(c0, t), mul(c1, t), mul(c2, t)};
-}
-
-LANE_FN Fp12 f12_one() { return Fp12{Fp6{f2_one(), f2_zero(), f2_zero()}, f6_zero()}; }
-
-BLS_CALL Fp12 mul(const Fp12& a, const Fp12& b) {
-  const Fp6 t0 = mul(a.c0, b.c0);
-  const Fp6 t1 = mul(a.c1, b.c1);
-  return Fp12{add(t0, mul_v(t1)), sub(mul(add(a.c0, a.c1), add(b.c0, b.c1)), add(t0, t1))};
-}
-
-LANE_FN Fp12 sqr(const Fp12& a) { return mul(a, a); }
-
-BLS_CALL Fp12 inv(const Fp12& a) {
-  const Fp6 t = inv(sub(mul(a.c0, a.c0), mul_v(mul(a.c1, a.c1))));
-  return Fp12{mul(a.c0, t), neg(mul(a.c1, t))};
-}
-
-// f^(p^6): negates the odd powers of w.
-LANE_FN Fp12 conj(const Fp12& a) { return Fp12{a.c0, neg(a.c1)}; }
-
-// f^(p^n) for n = 1, 2: the w-basis coefficient e_k (e0 = c0.c0, e1 = c1.c0,
-// e2 = c0.c1, e3 = c1.c1, e4 = c0.c2, e5 = c1.c2), conjugated for odd n,
-// times gamma[n-1][k].
-BLS_CALL Fp12 frob(const Fp12& a, int n) {
-  Fp2 e[6] = {a.c0.c0, a.c1.c0, a.c0.c1, a.c1.c1, a.c0.c2, a.c1.c2};
-  for (int k = 0; k < 6; ++k) {
-    Fp2 g;
-    for (int i = 0; i < kWords; ++i) {
-      g.c0.w[i] = kGamma[n - 1][k][0][i];
-      g.c1.w[i] = kGamma[n - 1][k][1][i];
-    }
-    e[k] = mul(n & 1 ? conj(e[k]) : e[k], g);
-  }
-  return Fp12{Fp6{e[0], e[2], e[4]}, Fp6{e[1], e[3], e[5]}};
-}
-
-// The twelve field elements of an Fp12 in the tower's order: c0.c0.c0,
-// c0.c0.c1, c0.c1.c0, ..., c1.c2.c1.
-LANE_FN const Fp& part(const Fp12& a, int k) {
-  const Fp6& h = k < 6 ? a.c0 : a.c1;
-  const Fp2& q = (k % 6) < 2 ? h.c0 : ((k % 6) < 4 ? h.c1 : h.c2);
-  return k % 2 ? q.c1 : q.c0;
-}
-
-LANE_FN Fp& part(Fp12& a, int k) {
-  Fp6& h = k < 6 ? a.c0 : a.c1;
-  Fp2& q = (k % 6) < 2 ? h.c0 : ((k % 6) < 4 ? h.c1 : h.c2);
-  return k % 2 ? q.c1 : q.c0;
-}
-
-LANE_FN bool is_one(const Fp12& a) {
-  const Fp12 one = f12_one();
-  bool ok = true;
-  for (int k = 0; k < 12; ++k) {
-    ok = ok && equal(part(a, k), part(one, k));
-  }
-  return ok;
-}
-
-// -- G1 and G2 in Jacobian coordinates (a = 0 curves) ---------------------
 
 // 2P, the JAX package's _jac_ops double (no special case: 2 * infinity has
 // z = 0 again).
@@ -433,114 +718,7 @@ BLS_CALL bool to_affine(const Jac<F>& p, F& x, F& y) {
   return is_zero(p.z);
 }
 
-// -- the ate Miller loop --------------------------------------------------
-
-// The line's w-basis slots 0, 3 and 5.
-LANE_FN Fp12 sparse_line(const Fp2& e0, const Fp2& e3, const Fp2& e5) {
-  const Fp2 z = f2_zero();
-  return Fp12{Fp6{e0, z, z}, Fp6{z, e3, e5}};
-}
-
-// f_{|x|, Q}(P) conjugated (the parameter is negative), with the JAX
-// package's lines: the tangent at T scaled by 2 Y Z^3 xi and the chord
-// through T and Q scaled by -Z H (both in Fp2, killed by the final
-// exponentiation).  The doubling steps run on every bit of |x| after the
-// first, the addition steps on its five other set bits.
-BLS_CALL Fp12 miller_loop(const Fp2& qx, const Fp2& qy, const Fp& px, const Fp& py) {
-  Jac<Fp2> t{qx, qy, f2_one()};
-  Fp12 f = f12_one();
-  for (int bit = 62; bit >= 0; --bit) {
-    {
-      const Fp2 z2 = sqr(t.z);
-      const Fp2 yz3 = mul(t.y, mul(z2, t.z));
-      const Fp2 e0 = neg(muli(mul_xi(mul_fp(yz3, py)), 2));
-      const Fp2 x2 = sqr(t.x);
-      const Fp2 e3 = sub(muli(sqr(t.y), 2), muli(mul(x2, t.x), 3));
-      const Fp2 e5 = muli(mul_fp(mul(x2, z2), px), 3);
-      f = mul(sqr(f), sparse_line(e0, e3, e5));
-      t = jac_double(t);
-    }
-    if ((kX >> bit) & 1u) {
-      const Fp2 z2 = sqr(t.z);
-      const Fp2 z3 = mul(z2, t.z);
-      const Fp2 h = sub(mul(qx, z2), t.x);
-      const Fp2 r = sub(mul(qy, z3), t.y);
-      const Fp2 zh = mul(t.z, h);
-      const Fp2 e0 = neg(mul_xi(mul_fp(zh, py)));
-      const Fp2 e3 = sub(mul(qy, zh), mul(r, qx));
-      const Fp2 e5 = mul_fp(r, px);
-      f = mul(f, sparse_line(e0, e3, e5));
-      const Fp2 hs = sqr(h);
-      const Fp2 hc = mul(hs, h);
-      const Fp2 v = mul(t.x, hs);
-      const Fp2 x3 = sub(sub(sqr(r), hc), muli(v, 2));
-      const Fp2 y3 = sub(mul(r, sub(v, x3)), mul(t.y, hc));
-      t = Jac<Fp2>{x3, y3, zh};
-    }
-  }
-  return conj(f);
-}
-
-// -- the final exponentiation, cubed ---------------------------------------
-
-// g^x for the (negative) parameter x: conj(g^|x|), valid in the cyclotomic
-// subgroup.
-BLS_CALL Fp12 exp_by_x(const Fp12& g) {
-  Fp12 acc = g;
-  for (int bit = 62; bit >= 0; --bit) {
-    acc = sqr(acc);
-    if ((kX >> bit) & 1u) {
-      acc = mul(acc, g);
-    }
-  }
-  return conj(acc);
-}
-
-// f^(3 (p^12 - 1) / r): the easy part f^((p^6 - 1)(p^2 + 1)), then the
-// 2020/875 hard part (x - 1)^2 (x + p)(x^2 + p^2 - 1) + 3.
-BLS_CALL Fp12 final_exp(const Fp12& f_in) {
-  Fp12 f = mul(conj(f_in), inv(f_in));
-  f = mul(frob(f, 2), f);
-  Fp12 t = mul(exp_by_x(f), conj(f));
-  t = mul(exp_by_x(t), conj(t));
-  t = mul(exp_by_x(t), frob(t, 1));
-  const Fp12 t2 = exp_by_x(exp_by_x(t));
-  t = mul(mul(t2, frob(t, 2)), conj(t));
-  return mul(t, mul(sqr(f), f));
-}
-
-// -- words in and out -------------------------------------------------------
-
-LANE_FN Fp load(const uint32_t* src) {
-  Fp r;
-  for (int i = 0; i < kWords; ++i) {
-    r.w[i] = src[i];
-  }
-  return r;
-}
-
-LANE_FN void store(uint32_t* dst, const Fp& a) {
-  for (int i = 0; i < kWords; ++i) {
-    dst[i] = a.w[i];
-  }
-}
-
 LANE_FN Fp2 load2(const uint32_t* src) { return Fp2{load(src), load(src + kWords)}; }
-
-// An Fp12 as 12 field elements in the tower's order (part).
-LANE_FN Fp12 load12(const uint32_t* src) {
-  Fp12 r;
-  for (int k = 0; k < 12; ++k) {
-    part(r, k) = load(src + k * kWords);
-  }
-  return r;
-}
-
-LANE_FN void store12(uint32_t* dst, const Fp12& a) {
-  for (int k = 0; k < 12; ++k) {
-    store(dst + k * kWords, part(a, k));
-  }
-}
 
 // The affine point of `coords` field elements (2: G1 x, y; 4: G2 x0, x1,
 // y0, y1) at src as a Jacobian point with z = 1.

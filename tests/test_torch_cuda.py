@@ -312,7 +312,7 @@ BLS_SLICE_MODULES = (
     "go_ibft_tpu_torch.crypto.quorum_cert", "go_ibft_tpu_torch.ops.bls_fp", "go_ibft_tpu_torch.ops.bls12_381",
     "go_ibft_tpu_torch.ops.bls_kernels", "go_ibft_tpu_torch.verify.bls", "go_ibft_tpu_torch.verify.aggregate",
     "go_ibft_tpu_torch.bench.bls_workload", "go_ibft_tpu_torch.bench.bls_chain", "go_ibft_tpu_torch.net",
-    "go_ibft_tpu_torch.net.aggtree",
+    "go_ibft_tpu_torch.net.aggtree", "go_ibft_tpu_torch.ops.bls_schedule", "go_ibft_tpu_torch.bench.bls_variants",
 )
 
 
@@ -414,6 +414,82 @@ def test_bls_kernels_match_plain_and_the_oracle(cuda_device, bls_inputs):
     assert ok.cpu().tolist() == [True, False]
     assert (bk.merge.launches, bk.miller.launches, bk.final_exp.launches) == (
         before[0] + 4, before[1] + 1, before[2] + 1)
+
+
+@pytest.fixture(scope="module")
+def bls_pairing_lanes():
+    """64 seeded pairing lanes and their plain values, computed once on the
+    card: lanes 0 and 3 a valid aggregate, pool points elsewhere, lane 63 a
+    (0, 0) G2 point on side 0 (the merge of an all-dead group).  The final
+    exponentiation's input is the Miller values with lane 1 zeroed, lane 3's
+    gate 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    from go_ibft_tpu_torch.crypto import bls as hbls
+    from go_ibft_tpu_torch.ops import bls12_381 as ops
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9)
+    pool2 = [hbls.g2_mul(k, hbls.G2_GEN) for k in range(1, 9)]
+    pool1 = [hbls.g1_mul(k, hbls.G1_GEN) for k in range(1, 9)]
+    msg = b"\x44" * 32
+    keys = [hbls.BLSPrivateKey(k) for k in (2, 6)]
+    s = hbls.aggregate_signatures([k.sign(msg) for k in keys])
+    pk = hbls.aggregate_pubkeys([k.pubkey for k in keys])
+    lanes_s = [pool2[int(i)] for i in rng.integers(0, 8, 64)]
+    lanes_h = [pool2[int(i)] for i in rng.integers(0, 8, 64)]
+    lanes_pk = [pool1[int(i)] for i in rng.integers(0, 8, 64)]
+    for i in (0, 3):
+        lanes_s[i], lanes_h[i], lanes_pk[i] = s, hbls.hash_to_g2(msg), pk
+    lanes_s[63] = None
+    q = torch.from_numpy(np.stack([ops.pack_g2_points(lanes_s), ops.pack_g2_points(lanes_h)])).to(dev)
+    p = torch.from_numpy(np.stack([ops.pack_g1_points([hbls.G1_GEN] * 64),
+                                   ops.pack_g1_points([hbls.g1_neg(x) for x in lanes_pk])])).to(dev)
+    f = ops.miller_plain(q, p)
+    f_in = f.clone()
+    f_in[1] = 0
+    gate = torch.ones(64, dtype=torch.bool, device=dev)
+    gate[3] = False
+    ok, res = ops.final_exp_plain(f_in, gate)
+    return q, p, f, f_in, gate, ok, res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 33, 64])
+def test_bls_pairing_kernels_match_plain_at_lane_counts(cuda_device, bls_pairing_lanes, n):
+    """``bls_miller`` and ``bls_final_exp`` (a block a lane) bit-exact against
+    their plain versions on the leading n lanes, one launch each."""
+    from go_ibft_tpu_torch.ops import bls_kernels as bk
+
+    q, p, f_plain, f_in, gate, pok, pres = bls_pairing_lanes
+    before = (bk.miller.launches, bk.final_exp.launches)
+    f = bk.miller(q[:, :n].contiguous(), p[:, :n].contiguous())
+    ok, res = bk.final_exp(f_in[:n].contiguous(), gate[:n].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(f, f_plain[:n])
+    assert torch.equal(ok, pok[:n]) and torch.equal(res, pres[:n])
+    assert (bk.miller.launches, bk.final_exp.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_bls_pairing_kernels_on_degenerate_lanes(cuda_device, bls_pairing_lanes):
+    """A zero Miller value gives zeros and no verdict, a gate of 0 masks a
+    lane whose result is one, a (0, 0) G2 point gives the plain version's
+    words; the verdicts are the plain version's, the valid lane's true.
+    (Pool lanes a G2, b G2, c G1 verify where a = b c, as lane 11 does.)"""
+    from go_ibft_tpu_torch.crypto import bls as hbls
+    from go_ibft_tpu_torch.ops import bls12_381 as ops
+    from go_ibft_tpu_torch.ops import bls_kernels as bk
+
+    q, p, f_plain, f_in, gate, pok, pres = bls_pairing_lanes
+    f = bk.miller(q, p)
+    ok, res = bk.final_exp(f_in, gate)
+    torch.cuda.synchronize()
+    assert torch.equal(f[63], f_plain[63])
+    assert not res[1].any() and torch.equal(res, pres)
+    one = torch.from_numpy(ops.pack_f12([hbls.F12_ONE])[0]).to(cuda_device)
+    assert torch.equal(res[3], one) and torch.equal(res[0], one)
+    assert torch.equal(ok, pok) and bool(ok[0]) and not bool(ok[1]) and not bool(ok[3])
 
 
 @pytest.mark.cuda
