@@ -65,11 +65,13 @@ Phases, in order (any failure exits non-zero and prints no result):
 10. BLS12-381 on the card (:func:`bls_phase`): the three pairing kernels
    (``bls_merge``, ``bls_miller``, ``bls_final_exp``,
    ``csrc/bls12_381.cu``) held bit-exact against their plain versions (the
-   merge launched on G1 and G2 at 2, 8, 128 and 1,024 points x 1, 7 and 64
-   groups with cancelling, duplicated, negated and dead lanes, each shape's
-   first three groups against the plain version and every group of up to 8
-   points against the host oracle; the Miller loops at 2 and 64 lanes; the
-   final exponentiation at 1 and 64), a few lanes also against
+   merge launched on G1 and G2 at 1, 2, 3, 8, 128, 129 and 1,024 points x
+   1, 7 and 64 groups and at 17 groups of 8, with cancelling, duplicated,
+   negated and dead lanes, a sum of infinity with no cancelling pair and a
+   single live point, each shape's first four groups against the plain
+   version and every group of up to 8 points against the host oracle; the
+   Miller loops at 2 and 64 lanes; the final exponentiation at 1 and 64), a
+   few lanes also against
    ``crypto.bls`` (the pairing ratio cubed); config #4 (one
    100-validator aggregate COMMIT check: verdict, median of 20 calls, one
    host-oracle call, a profiled call in a process of its own,
@@ -860,8 +862,9 @@ BLS_FINAL_EXP_MULS = (2 * 12 + 2 * 18 + 37) + 2 * 54 + 10 + 5 * (63 * 18 + 5 * 5
 # Fp inversion and 4 products).  The affine inputs need no map back.
 BLS_ADD_MULS = {2: 6, 4: 17}
 BLS_INV_MULS = {2: 0, 4: 4}
-BLS_MERGE_V = (2, 8, 128, 1024)
+BLS_MERGE_V = (1, 2, 3, 8, 128, 129, 1024)
 BLS_MERGE_G = (1, 7, 64)
+BLS_MERGE_EXTRA = ((17, 8),)  # (groups, points): a partial last block of small groups
 BLS_WHERE = {
     "bls_merge": ("go_ibft_tpu_torch/csrc/bls12_381.cu", "go_ibft_tpu/ops/bls12_381.py:759"),
     "bls_miller": ("go_ibft_tpu_torch/csrc/bls12_381.cu", "go_ibft_tpu/ops/bls12_381.py:789"),
@@ -948,7 +951,8 @@ def bls_phase(report: dict, ident: str, counts, dev=None, small: bool = False) -
     def merge_case(coords, g, v):
         """g groups of v points drawn from the pool (duplicates), a tenth
         negated, a fifth dead; group 1 all dead, group 0's first two lanes
-        P and -P."""
+        P and -P; group 2's only live points P, Q and -(P + Q), apart (a sum
+        of infinity with no cancelling pair); group 3 one live point."""
         idx = rng.integers(0, 64, size=(g, v))
         neg = rng.random((g, v)) < 0.1
         live = rng.random((g, v)) >= 0.2
@@ -960,41 +964,57 @@ def bls_phase(report: dict, ident: str, counts, dev=None, small: bool = False) -
             live[1] = False
         pos, negs = packed[coords]
         pts = np.where(neg[..., None, None], negs[idx], pos[idx])
-        hosts = [[(hbls.g1_neg if coords == 2 else hbls.g2_neg)(pool[coords][i]) if n else pool[coords][i]
+        add, negate = (hbls.g1_add, hbls.g1_neg) if coords == 2 else (hbls.g2_add, hbls.g2_neg)
+        hosts = [[negate(pool[coords][i]) if n else pool[coords][i]
                   for i, n in zip(idx[gi], neg[gi])] for gi in range(g)]
+        if g > 2 and v >= 3:
+            a, b = (int(i) for i in rng.integers(0, 64, size=2))
+            trio = (pool[coords][a], pool[coords][b], negate(add(pool[coords][a], pool[coords][b])))
+            live[2] = False
+            pack = ops.pack_g1_points if coords == 2 else ops.pack_g2_points
+            for at, pt in zip((0, v // 2, v - 1), trio):
+                pts[2, at] = pack([pt])[0]
+                hosts[2][at] = pt
+                live[2, at] = True
+        if g > 3:
+            live[3] = False
+            live[3, v // 2] = True
         return torch.from_numpy(np.ascontiguousarray(pts)), torch.from_numpy(live), hosts
 
-    vs = (2, 8, 128) if small else BLS_MERGE_V
+    vs = (1, 2, 3, 8, 128) if small else BLS_MERGE_V
     gs = (1, 7) if small else BLS_MERGE_G
+    shapes = [(g, v) for v in vs for g in gs] + list(BLS_MERGE_EXTRA)
     t0 = time.perf_counter()
     for coords in (2, 4):
         # The kernel at every (groups, points) shape.  Its plain version
         # costs seconds a call and grows with groups x points, so it runs on
-        # the first three groups of each shape, batched per point count
-        # below 128 and at 1,024 (padded with dead lanes to the batch's
-        # width: dead lanes change neither the sum nor the plain version's
-        # order of additions); the host oracle takes every group of up to 8
-        # points and single groups.
+        # the first four groups of each shape (the special ones), batched
+        # per point count up to 128 and each above (padded with dead lanes
+        # to the batch's width: dead lanes change neither the sum nor the
+        # plain version's order of additions); the host oracle takes every
+        # group of up to 8 points and single groups.
         held = {}
-        for v in vs:
-            for g in gs:
-                pts, live, hosts = merge_case(coords, g, v)
-                for neg_y in (False, True) if g == 7 else (False,):
-                    got, inf = bk.merge(pts.to(dev), live.to(dev), neg_y)
-                    width = 128 if v <= 128 else v
-                    held.setdefault((width, neg_y), []).append((g, v, got, inf, pts[:3], live[:3]))
-                    if neg_y:
-                        continue
-                    if v <= 8 or g == 1:  # the host oracle
-                        unpack = ops.unpack_g1_points if coords == 2 else ops.unpack_g2_points
-                        add = hbls.g1_add if coords == 2 else hbls.g2_add
-                        got_pts = unpack(got.cpu(), inf.cpu())
-                        for gi in range(g):
-                            acc = None
-                            for p, alive in zip(hosts[gi], live[gi].tolist()):
-                                if alive:
-                                    acc = add(acc, p)
-                            check(got_pts[gi] == acc, f"bls_merge == host oracle, group {gi} of {g} x {v}")
+        for g, v in shapes:
+            pts, live, hosts = merge_case(coords, g, v)
+            for neg_y in (False, True) if g == 7 else (False,):
+                got, inf = bk.merge(pts.to(dev), live.to(dev), neg_y)
+                width = 128 if v <= 128 else v
+                held.setdefault((width, neg_y), []).append((g, v, got, inf, pts[:4], live[:4]))
+                if neg_y:
+                    continue
+                if v <= 8 or g == 1:  # the host oracle
+                    unpack = ops.unpack_g1_points if coords == 2 else ops.unpack_g2_points
+                    add = hbls.g1_add if coords == 2 else hbls.g2_add
+                    got_pts = unpack(got.cpu(), inf.cpu())
+                    for gi in range(g):
+                        acc = None
+                        for p, alive in zip(hosts[gi], live[gi].tolist()):
+                            if alive:
+                                acc = add(acc, p)
+                        check(got_pts[gi] == acc, f"bls_merge == host oracle, group {gi} of {g} x {v}")
+                if g > 3 and v >= 3:
+                    check(bool(inf[2]) and not bool(inf[3]), f"bls_merge: P + Q - (P + Q) is infinity and one "
+                          f"live point is not, {g} x {v}")
         sync()
         for (width, neg_y), cases in held.items():
             ref, rinf = ops.merge_plain(
@@ -1007,9 +1027,10 @@ def bls_phase(report: dict, ident: str, counts, dev=None, small: bool = False) -
                 same(got[:k], ref[at:at + k], "bls_merge", what)
                 same(inf[:k], rinf[at:at + k], "bls_merge", f"infinity flags, {what}")
                 at += k
-    log(f"[10] bls_merge at V={vs} x groups {gs} on G1 and G2 (P + -P, duplicates, negated and dead lanes, an "
-        f"all-dead group; y negated at 7 groups): bit-exact against plain on each shape's first 3 groups, every "
-        f"group of up to 8 points and single groups against the host oracle ({time.perf_counter() - t0:.1f}s)")
+    log(f"[10] bls_merge at V={vs} x groups {gs} and (groups, V) {BLS_MERGE_EXTRA} on G1 and G2 (P + -P, "
+        f"duplicates, negated and dead lanes, an all-dead group, P, Q and -(P + Q) apart, one live point; y "
+        f"negated at 7 groups): bit-exact against plain on each shape's first 4 groups, every group of up to 8 "
+        f"points and single groups against the host oracle ({time.perf_counter() - t0:.1f}s)")
 
     # Miller lanes: lanes 0 and 3 a valid aggregate, the rest pool points, the
     # last with a (0, 0) G2 point on side 0 (the merge of an all-dead group).
@@ -1470,8 +1491,10 @@ def bls_kernels_only() -> int:
     Eight seeded lanes of pool points (multiples of the generators), tiled to
     N = 1, 64 and 1,024 lanes: CUDA events over back-to-back launches through
     the launchers, and a SHA-256 of each output, equal across checkouts.  The
-    merge at config #4's G2 1 x 128 (100 live) and G1 1 x 128.  Prints the
-    card's identity, the build's ptxas lines, then one JSON line."""
+    merge at config #4's G2 1 x 128 (100 live) and G1 1 x 128, at G2 1 x
+    1,024 (1,000 live) and at config #13's G1 64 x 8 and 1,024 x 8, with
+    each shape's least-work bound.  Prints the card's identity, the build's
+    ptxas lines, then one JSON line."""
     import numpy as np
 
     import go_ibft_tpu_torch
@@ -1512,12 +1535,16 @@ def bls_kernels_only() -> int:
                             "sha256": sha(bk.launch_miller(q, p))}
         out["final_exp"][n] = {"ms": cuda_time_ms(lambda: bk.launch_final_exp(f, gate), 10),
                                "sha256": sha(*bk.launch_final_exp(f, gate))}
-    live = torch.arange(128, device=dev) < 100
-    for name, pts in (("G2 1x128", ops.pack_g2_points([g2[i % 16] for i in range(128)])),
-                      ("G1 1x128", ops.pack_g1_points([g1[i % 16] for i in range(128)]))):
-        pts = torch.from_numpy(pts).to(dev).unsqueeze(0).contiguous()
-        out["merge"][name] = {"ms": cuda_time_ms(lambda: bk.launch_merge(pts, live.unsqueeze(0)), 10),
-                              "sha256": sha(*bk.launch_merge(pts, live.unsqueeze(0)))}
+    # (name, coordinates, groups, points a group, live points a group)
+    for name, c, g, v, n_live in (("G2 1x128", 4, 1, 128, 100), ("G1 1x128", 2, 1, 128, 100),
+                                  ("G2 1x1024", 4, 1, 1024, 1000), ("G1 64x8", 2, 64, 8, 8),
+                                  ("G1 1024x8", 2, 1024, 8, 8)):
+        pack, pool = (ops.pack_g1_points, g1) if c == 2 else (ops.pack_g2_points, g2)
+        pts = torch.from_numpy(pack([pool[i % 16] for i in range(g * v)])).to(dev).reshape(g, v, c, 12).contiguous()
+        live = (torch.arange(v, device=dev) < n_live).expand(g, v).contiguous()
+        out["merge"][name] = {"ms": cuda_time_ms(lambda: bk.launch_merge(pts, live), 10),
+                              "sha256": sha(*bk.launch_merge(pts, live)),
+                              **bound(pts.numel() * 4 + live.numel() + g * (c * 12 * 4 + 1), merge_ops(live.cpu(), c))}
     print(json.dumps(out), flush=True)
     return 0
 

@@ -5,13 +5,7 @@
 //   flag.  Replaces the JAX package's tree aggregation
 //   (go_ibft_tpu/ops/bls12_381.py:759 _aggregate_stage, :1024 g2_merge_tree,
 //   :1045 g1_merge_tree, :1098 _multi_g1_neg_aggregate_stage, over
-//   _tree_reduce and _jac_ops).  One block of 128 threads a group: thread t
-//   folds the live points t, t + 128, ... serially, then the block sums its
-//   128 partial sums in a halving tree in shared memory, and thread 0
-//   inverts z once.  The additions are complete (P + P doubles, P + (-P) is
-//   infinity, infinity returns the other point), so every order of the sum
-//   gives the same point.  Its algorithm is its first version's; it now
-//   runs on the register product and the Kaliski inverse below.
+//   _tree_reduce and _jac_ops).  Its design is below ("The merge").
 // * bls_miller: per lane i the Miller loops of its two sides, (S_i, G1) and
 //   (H_i, -PK_i), and their product in Fp12.  Replaces :789
 //   _miller_product_stage and :1117 _multi_miller_stage (:576 miller_loop,
@@ -50,7 +44,7 @@
 //     (51): 219 rounds and 11,266 products in all, the five additions on the
 //     set bits of |x|;
 //   - the final exponentiation: the easy part's inverse goes down the tower
-//     to one Fp inversion (Kaliski, one thread), the hard part is five
+//     to one Fp inversion (a safegcd, one thread), the hard part is five
 //     x-powers of 63 cyclotomic squarings and 5 products each, the
 //     Frobenius maps fused into squaring rounds: 358 rounds, 7,617 products.
 // One block a lane: lanes never share a barrier, and a grid of N blocks
@@ -58,17 +52,70 @@
 // the card; the rest is the sums, whose terms are loaded a batch at a time
 // (bench/bls_variants.py measures the split and every constant below).
 //
+// The merge.  The sum is unique, so any order and any coordinates give the
+// same words; the inputs must be points on the curve (the port decodes seals
+// with on-curve and subgroup checks, pubkeys come from keys): E(Fp) and
+// E'(Fp2) have odd order, so the complete formulas below hold on every such
+// input.  What bounds it on an H100: at one group the latency of a chain of
+// ceil(log2 n) tree levels, each two dependent Fp products (~1.3 us each on
+// one thread: a carry chain that no other instruction can share) and their
+// operand sums, and of the one inversion; at 1,024 groups the operations
+// (n - 1 additions a group).  The design (times: NVIDIA H100 80GB HBM3 at
+// 700 W, from bench/bls_variants.py; PERF.md §6 has them all):
+//   - homogeneous projective points and the complete formulas of Renes,
+//     Costello and Batina (Eurocrypt 2016) for a = 0: Algorithm 7, and
+//     Algorithm 8's mixed form on the first level, where both points are
+//     affine.  P + P, P + (-P) and the identity (0 : 1 : 0) come out of the
+//     one formula, so no thread branches on a point.  An addition is two
+//     rounds of independent Fp products (6 + 6 on G1, 18 + 18 on G2 with
+//     Karatsuba; 3 + 6 and 9 + 18 mixed) and a store, the operands and
+//     outputs small integer combinations (the forms that
+//     ops/bls_schedule.py's merge_addition writes into
+//     bls12_381_schedule.cuh, summed by bls::merge_eval, written by hand for
+//     the merge: the pairing interpreter's coefficients stop at 8, b3 under
+//     Karatsuba reaches 24);
+//   - a level of the tree is spread over the block: a thread takes one
+//     (pair, product) of a wave of threads / 18 (G2) or / 6 (G1) pairs, its
+//     operands in registers, the points in shared memory; the live points
+//     are compacted first, so n live points take ceil(log2 n) levels, and an
+//     odd last point carries over.  A level costs ~8 us on G1 and ~13 us on
+//     G2, two product latencies and the forms' sums (the first version's 7
+//     halving levels of one-thread Jacobian additions took 0.5 ms of a G2
+//     1 x 128 merge);
+//   - a block of one group has kMergeWideThreads = 512 threads (G2 1 x 128
+//     0.151 ms against 0.164 on 256 and 0.206 on 128; G2 1 x 1,024 0.716
+//     against 0.878 and 1.271); a group of more than kMergeCap points goes
+//     through a region of kMergeCap: refill the region's free half, one
+//     level, again;
+//   - small groups share a block of kMergeThreads = 256 (two blocks an SM):
+//     as many as one wave of the first level serves (10 G1 or 3 G2 groups of
+//     8); threads without a group reach every barrier and write nothing (G1
+//     1,024 x 8 0.088 ms against 0.100 on 512);
+//   - one inversion a block: Montgomery's trick over the block's groups'
+//     Z (G2: the norm Z conj(Z) in Fp), prefix and suffix products in log2
+//     rounds, groups at infinity (Z = 0, or no live point) skipped and
+//     written as zeros with their flag.  The inverse is a safegcd
+//     (bls12_381.cuh) that stops when g = 0, its divsteps in runs: a third
+//     of a G1 1 x 128 merge (the first version's Kaliski inverse was 63 us
+//     of 0.47 ms).
+//
 // The lane arithmetic is in bls12_381.cuh.  Under a host C++ compiler this
 // file builds the _host entry points instead of the kernels: the same
-// rounds, each phase's threads one after another over a host array that
-// stands for shared memory, which the CPU tests hold against the host
-// oracle and the plain versions.
+// rounds and the same merge phases, each phase's threads one after another
+// over a host array that stands for shared memory, which the CPU tests hold
+// against the host oracle and the plain versions.
 
 #include "bls12_381.cuh"
 
 namespace {
 
-constexpr int kMergeThreads = 128;                // threads a group
+// The merge: threads a block where a block holds several groups, and where
+// it holds one (see merge_plan); points a block's region holds; groups a
+// block.
+constexpr int kMergeThreads = 256;
+constexpr int kMergeWideThreads = 512;
+constexpr int kMergeCap = 512;
+constexpr int kMergeMaxGroups = 32;
 // Threads a Miller lane: its widest rounds hold 62 products.
 constexpr int kMillerThreads = 64;
 // Threads a final-exponentiation lane: 64 while lanes are few (a lane's
@@ -115,6 +162,354 @@ LANE_FN void f12_out(const uint32_t* elems, const uint16_t* at, uint32_t* dst, i
   }
 }
 
+// -- the merge ------------------------------------------------------------------
+
+LANE_FN int imin(int a, int b) { return a < b ? a : b; }
+
+// A merge launch's shape: how a block packs its groups and lays out its
+// shared memory (offsets in 32-bit words, each element 16-byte aligned).
+struct MergePlan {
+  int v, coords, half;  // points a group; elements an input point (2: G1, 4: G2) and a projective one
+  int slots;            // a round's most products a pair
+  int threads, gpb;     // a block's threads and groups
+  int capg, window, pw;  // points a group's region holds, its fill window, pairs a wave
+  int region, prod1, prod2, map, ints, flags, words;
+};
+
+// A block holds as many groups as one wave of the first level serves on
+// kMergeThreads threads, where they fit; a block of one group takes
+// kMergeWideThreads (its levels are wider than a wave).
+inline MergePlan merge_plan(int v, int coords, long long groups) {
+  MergePlan p{};
+  p.v = v;
+  p.coords = coords;
+  p.half = coords == 2 ? 3 : 6;
+  p.slots = coords == 2 ? sched::kMergeG1Slots : sched::kMergeG2Slots;
+  p.capg = v < kMergeCap ? v : kMergeCap;
+  long long gpb = 1;
+  if (v < kMergeCap) {
+    const int by_wave = kMergeThreads / (((p.capg + 1) / 2) * p.slots);
+    gpb = by_wave < 1 ? 1 : by_wave;
+    gpb = gpb < kMergeCap / v ? gpb : kMergeCap / v;
+  }
+  gpb = gpb < kMergeMaxGroups ? gpb : kMergeMaxGroups;
+  p.threads = gpb == 1 ? kMergeWideThreads : kMergeThreads;
+  p.pw = p.threads / p.slots;
+  p.gpb = static_cast<int>(gpb < groups ? gpb : groups);
+  p.window = (p.capg + 31) / 32 * 32;
+  const int segs = p.gpb * p.window / 32;
+  int at = 0;
+  p.region = at;
+  at += p.gpb * p.capg * p.half * bls::kWords;
+  p.prod1 = at;  // also the affine map's products (10 a group on G2)
+  at += p.pw * p.slots * bls::kWords;
+  p.prod2 = at;
+  at += p.pw * p.slots * bls::kWords;
+  p.map = at;  // a group's prefix (two), suffix (two), cofactor and coordinates; the inverse
+  at += (p.gpb * (5 + p.coords) + 1) * bls::kWords;
+  p.ints = at;  // n, cursor, next cursor, infinity, pfx (gpb + 1), segment counts, control
+  at += (4 * p.gpb + (p.gpb + 1) + segs + 4 + 3) / 4 * 4;
+  p.flags = at;
+  at += (p.gpb * p.window + 15) / 16 * 4;
+  p.words = at;
+  return p;
+}
+
+enum { kCtlPairs, kCtlFill };
+
+// The block's phases: each runs its body for every thread t, then a barrier
+// of the block (on the card: the block's threads at once; on the host: one
+// after another).
+#if defined(__CUDACC__)
+struct Block {
+  template <class Fn>
+  __device__ void phase(Fn fn) {
+    fn(static_cast<int>(threadIdx.x));
+    __syncthreads();
+  }
+};
+#else
+struct Block {
+  int threads;
+  template <class Fn>
+  void phase(Fn fn) {
+    for (int t = 0; t < threads; ++t) {
+      fn(t);
+    }
+  }
+};
+#endif
+
+// One block's groups [first, first + gpb) of the launch: fill each group's
+// region with its next live points (compacted, affine with Z = 1), add
+// pairs (2j, 2j + 1) -> j level by level in waves of pw pairs (two rounds of
+// products and a store, the first level in the mixed form), carry an odd
+// last point, until every group holds one point; then the affine map with
+// one inversion for the block (Montgomery's trick).
+LANE_FN void merge_block(Block& blk, const MergePlan& pl, uint32_t* sm, const uint32_t* pts, const uint8_t* live,
+                         long long groups, long long first, bool neg_y, uint32_t* out, uint8_t* inf_out) {
+  const int nt = pl.threads, gpb = pl.gpb, half = pl.half, w12 = half * bls::kWords, ngroups =
+      static_cast<int>(groups - first < gpb ? groups - first : gpb);
+  uint32_t* region = sm + pl.region;
+  uint32_t* prod1 = sm + pl.prod1;
+  uint32_t* prod2 = sm + pl.prod2;
+  int* n = reinterpret_cast<int*>(sm + pl.ints);
+  int* cursor = n + gpb;
+  int* next = cursor + gpb;
+  int* infl = next + gpb;
+  int* pfx = infl + gpb;
+  int* cnt = pfx + gpb + 1;
+  int* ctl = cnt + gpb * pl.window / 32;
+  uint8_t* flags = reinterpret_cast<uint8_t*>(sm + pl.flags);
+  const int items = gpb * pl.window, segs = items / 32, per_group = pl.window / 32;
+  auto slot = [&](int g, int j) { return region + (g * pl.capg + j) * w12; };
+  auto locate = [&](int pr, int& j) {
+    int g = 0;
+    while (pfx[g + 1] <= pr) {
+      ++g;
+    }
+    j = pr - pfx[g];
+    return g;
+  };
+
+  blk.phase([&](int t) {
+    for (int g = t; g < gpb; g += nt) {
+      n[g] = 0;
+      cursor[g] = g < ngroups ? 0 : pl.v;
+    }
+    if (t == 0) {
+      ctl[kCtlFill] = 1;
+    }
+  });
+  // Fills and levels: a fill where some group has input left, a level where
+  // some group holds a pair (a window can hold too few live points for one).
+  for (int level = 0;;) {
+    if (ctl[kCtlFill] != 0) {
+      // Fill: flag the window's live points, count them by segments of 32,
+      // place each at n + its rank where that is inside the region.
+      blk.phase([&](int t) {
+        for (int i = t; i < items; i += nt) {
+          const int g = i / pl.window, pos = cursor[g] + i % pl.window;
+          flags[i] = n[g] < pl.capg && pos < pl.v && live[(first + g) * pl.v + pos] != 0;
+        }
+        for (int g = t; g < gpb; g += nt) {
+          next[g] = n[g] < pl.capg ? imin(pl.v, cursor[g] + pl.window) : cursor[g];
+        }
+      });
+      blk.phase([&](int t) {
+        for (int s = t; s < segs; s += nt) {
+          int c = 0;
+          for (int i = 0; i < 32; ++i) {
+            c += flags[32 * s + i];
+          }
+          cnt[s] = c;
+        }
+      });
+      blk.phase([&](int t) {
+        for (int i = t; i < items; i += nt) {
+          if (flags[i] == 0) {
+            continue;
+          }
+          const int g = i / pl.window, pos = cursor[g] + i % pl.window;
+          int rank = 0;
+          for (int s = g * per_group; s < i / 32; ++s) {
+            rank += cnt[s];
+          }
+          for (int k = i & ~31; k < i; ++k) {
+            rank += flags[k];
+          }
+          const int at = n[g] + rank;
+          if (at >= pl.capg) {
+            continue;
+          }
+          const uint32_t* src = pts + ((first + g) * pl.v + pos) * pl.coords * bls::kWords;
+          uint32_t* dst = slot(g, at);
+          for (int e = 0; e < pl.coords; ++e) {  // X, Y (G2: X0, X1, Y0, Y1)
+            bls::store(dst + e * bls::kWords, bls::load(src + e * bls::kWords));
+          }
+          bls::store(dst + pl.coords * bls::kWords, bls::fp_one());  // Z = 1 (G2: 1 + 0 u)
+          if (pl.coords == 4) {
+            bls::store(dst + 5 * bls::kWords, bls::fp_zero());
+          }
+          if (at == pl.capg - 1) {
+            next[g] = pos + 1;
+          }
+        }
+      });
+      blk.phase([&](int t) {
+        for (int g = t; g < gpb; g += nt) {
+          int total = 0;
+          for (int s = g * per_group; s < (g + 1) * per_group; ++s) {
+            total += cnt[s];
+          }
+          n[g] = imin(pl.capg, n[g] + total);
+          cursor[g] = next[g];
+        }
+      });
+    }
+    blk.phase([&](int t) {
+      if (t == 0) {
+        int pairs = 0, fill = 0;
+        for (int g = 0; g < gpb; ++g) {
+          pfx[g] = pairs;
+          pairs += n[g] / 2;
+          fill |= cursor[g] < pl.v;
+        }
+        pfx[gpb] = pairs;
+        ctl[kCtlPairs] = pairs;
+        ctl[kCtlFill] = fill;
+      }
+    });
+    const int pairs = ctl[kCtlPairs];
+    if (pairs == 0) {
+      if (ctl[kCtlFill] != 0) {
+        continue;
+      }
+      break;
+    }
+    const int kind = (pl.coords == 2 ? 0 : 12) + (level == 0 ? 6 : 0);
+    const int f1 = sched::kMergeKinds[kind], s1 = sched::kMergeKinds[kind + 1];
+    const int f2 = sched::kMergeKinds[kind + 2], s2 = sched::kMergeKinds[kind + 3];
+    const int fo = sched::kMergeKinds[kind + 4];
+    for (int w0 = 0; w0 < pairs; w0 += pl.pw) {
+      const int np = imin(pl.pw, pairs - w0);
+      blk.phase([&](int t) {  // round 1: products of the inputs' forms
+        for (int k = t; k < np * s1; k += nt) {
+          const int sl = k / np, pr = w0 + k % np;
+          int j;
+          const int g = locate(pr, j);
+          const uint32_t* in = slot(g, 2 * j);
+          const bls::Fp a = bls::merge_eval(sched::kMergeForms[f1 + 2 * sl], nullptr, in, false);
+          const bls::Fp b = bls::merge_eval(sched::kMergeForms[f1 + 2 * sl + 1], nullptr, in, false);
+          bls::store(prod1 + ((pr - w0) * pl.slots + sl) * bls::kWords, bls::mul(a, b));
+        }
+      });
+      blk.phase([&](int t) {  // round 2: products of forms of round 1's
+        for (int k = t; k < np * s2; k += nt) {
+          const int sl = k / np, pr = w0 + k % np;
+          int j;
+          const int g = locate(pr, j);
+          const uint32_t* in = slot(g, 2 * j);
+          const uint32_t* p1 = prod1 + (pr - w0) * pl.slots * bls::kWords;
+          const bls::Fp a = bls::merge_eval(sched::kMergeForms[f2 + 2 * sl], p1, in, false);
+          const bls::Fp b = bls::merge_eval(sched::kMergeForms[f2 + 2 * sl + 1], p1, in, false);
+          bls::store(prod2 + ((pr - w0) * pl.slots + sl) * bls::kWords, bls::mul(a, b));
+        }
+      });
+      blk.phase([&](int t) {  // the sums: pair j's point to slot j
+        for (int k = t; k < np * half; k += nt) {
+          const int e = k / np, pr = w0 + k % np;
+          int j;
+          const int g = locate(pr, j);
+          const uint32_t* p2 = prod2 + (pr - w0) * pl.slots * bls::kWords;
+          bls::store(slot(g, j) + e * bls::kWords, bls::merge_eval(sched::kMergeForms[fo + e], p2, nullptr, true));
+        }
+      });
+    }
+    blk.phase([&](int t) {  // an odd last point carries over
+      for (int k = t; k < gpb * w12; k += nt) {
+        const int g = k / w12;
+        if (n[g] >= 3 && (n[g] & 1) != 0) {
+          slot(g, n[g] / 2)[k % w12] = slot(g, n[g] - 1)[k % w12];
+        }
+      }
+    });
+    blk.phase([&](int t) {
+      for (int g = t; g < gpb; g += nt) {
+        n[g] = n[g] >= 2 ? (n[g] + 1) / 2 : n[g];
+      }
+    });
+    ++level;
+  }
+
+  // The affine map: x = X / Z, y = Y / Z (G2: X conj(Z) / N, with N = Z
+  // conj(Z) in Fp), all of the block's N or Z inverted at once.
+  uint32_t* map = sm + pl.map;
+  auto pre = [&](int b) { return map + b * gpb * bls::kWords; };  // two buffers of prefix products
+  auto suf = [&](int b) { return map + (2 + b) * gpb * bls::kWords; };  // and of suffix products
+  uint32_t* cof = map + 4 * gpb * bls::kWords;
+  uint32_t* coord = map + 5 * gpb * bls::kWords;  // (group, c)
+  uint32_t* tinv = coord + gpb * pl.coords * bls::kWords;
+  if (pl.coords == 4) {
+    blk.phase([&](int t) {  // the products of Z conj(Z), X conj(Z), Y conj(Z)
+      for (int k = t; k < gpb * 10; k += nt) {
+        // Product m of (Z0 Z0, Z1 Z1, X0 Z0, X1 Z1, X1 Z0, X0 Z1, Y0 Z0, Y1 Z1,
+        // Y1 Z0, Y0 Z1): the first factor's element is nibble m of kA, the
+        // second's Z0 or Z1 by m's parity.
+        constexpr uint64_t kA = 0x2332011054ull;
+        const int m = k % 10;
+        const uint32_t* el = slot(k / 10, 0);
+        bls::store(prod1 + k * bls::kWords, bls::mul(bls::load(el + ((kA >> (4 * m)) & 15u) * bls::kWords),
+                                                     bls::load(el + (4 + (m & 1)) * bls::kWords)));
+      }
+    });
+  }
+  blk.phase([&](int t) {
+    for (int g = t; g < gpb; g += nt) {
+      const uint32_t* el = slot(g, 0);
+      bls::Fp e;
+      uint32_t* c = coord + g * pl.coords * bls::kWords;
+      if (pl.coords == 2) {
+        e = bls::load(el + 2 * bls::kWords);
+        bls::store(c, bls::load(el));
+        bls::store(c + bls::kWords, bls::load(el + bls::kWords));
+      } else {
+        const uint32_t* m = prod1 + g * 10 * bls::kWords;
+        auto at = [&](int i) { return bls::load(m + i * bls::kWords); };
+        e = bls::add(at(0), at(1));
+        bls::store(c, bls::add(at(2), at(3)));
+        bls::store(c + bls::kWords, bls::sub(at(4), at(5)));
+        bls::store(c + 2 * bls::kWords, bls::add(at(6), at(7)));
+        bls::store(c + 3 * bls::kWords, bls::sub(at(8), at(9)));
+      }
+      const bool inf = n[g] == 0 || bls::is_zero(e);
+      infl[g] = inf;
+      if (inf) {
+        e = bls::fp_one();
+      }
+      bls::store(pre(0) + g * bls::kWords, e);
+      bls::store(suf(0) + g * bls::kWords, e);
+    }
+  });
+  int src = 0;
+  for (int d = 1; d < gpb; d <<= 1, src ^= 1) {  // prefix and suffix products
+    blk.phase([&](int t) {
+      for (int k = t; k < 2 * gpb; k += nt) {
+        const int i = k % gpb, other = k < gpb ? i - d : i + d;
+        const uint32_t* from = k < gpb ? pre(src) : suf(src);
+        bls::Fp x = bls::load(from + i * bls::kWords);
+        if (other >= 0 && other < gpb) {
+          x = bls::mul(x, bls::load(from + other * bls::kWords));
+        }
+        bls::store((k < gpb ? pre(src ^ 1) : suf(src ^ 1)) + i * bls::kWords, x);
+      }
+    });
+  }
+  blk.phase([&](int t) {  // each group's cofactor; the product's inverse
+    for (int g = t; g < gpb; g += nt) {
+      const bls::Fp lo = g > 0 ? bls::load(pre(src) + (g - 1) * bls::kWords) : bls::fp_one();
+      const bls::Fp hi = g + 1 < gpb ? bls::load(suf(src) + (g + 1) * bls::kWords) : bls::fp_one();
+      bls::store(cof + g * bls::kWords, bls::mul(lo, hi));
+    }
+    if (t == 0) {
+      bls::store(tinv, bls::inv(bls::load(pre(src) + (gpb - 1) * bls::kWords)));
+    }
+  });
+  blk.phase([&](int t) {
+    for (int k = t; k < ngroups * pl.coords; k += nt) {
+      const int g = k / pl.coords, c = k % pl.coords;
+      bls::Fp x = bls::mul(bls::load(coord + k * bls::kWords),
+                           bls::mul(bls::load(cof + g * bls::kWords), bls::load(tinv)));
+      if (neg_y && 2 * c >= pl.coords) {
+        x = bls::neg(x);
+      }
+      bls::store(out + ((first + g) * pl.coords + c) * bls::kWords, infl[g] ? bls::fp_zero() : x);
+      if (c == 0) {
+        inf_out[first + g] = static_cast<uint8_t>(infl[g]);
+      }
+    }
+  });
+}
 }  // namespace
 
 #if defined(__CUDACC__)
@@ -123,39 +518,22 @@ LANE_FN void f12_out(const uint32_t* elems, const uint16_t* at, uint32_t* dst, i
 
 namespace {
 
-template <class F>
-__global__ void __launch_bounds__(kMergeThreads)
-bls_merge_kernel(const uint32_t* __restrict__ pts, const uint8_t* __restrict__ live, int v, int coords,
-                 int neg_y, uint32_t* __restrict__ out, uint8_t* __restrict__ inf_out) {
-  __shared__ bls::Jac<F> tree[kMergeThreads];
-  const long long g = blockIdx.x;
-  const int t = threadIdx.x;
-  bls::Jac<F> acc = bls::infinity(static_cast<const bls::Jac<F>*>(nullptr));
-  for (int i = t; i < v; i += kMergeThreads) {
-    const long long at = g * v + i;
-    if (live[at]) {
-      bls::Jac<F> p;
-      bls::load_point(pts + at * coords * bls::kWords, p);
-      acc = bls::jac_add(acc, p);
-    }
-  }
-  tree[t] = acc;
-  __syncthreads();
-  for (int s = kMergeThreads / 2; s > 0; s >>= 1) {
-    if (t < s) {
-      tree[t] = bls::jac_add(tree[t], tree[t + s]);
-    }
-    __syncthreads();
-  }
-  if (t == 0) {
-    inf_out[g] = bls::store_affine(out + g * coords * bls::kWords, tree[0], neg_y != 0);
-  }
+// One block of kThreads a launch's plan's groups (at most 128 registers a
+// thread: a block of 256 leaves room for a second on the SM).
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads, kThreads == kMergeWideThreads ? 1 : 2)
+bls_merge_kernel(const uint32_t* __restrict__ pts, const uint8_t* __restrict__ live, long long groups,
+                 MergePlan plan, int neg_y, uint32_t* __restrict__ out, uint8_t* __restrict__ inf) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  Block blk;
+  merge_block(blk, plan, smem, pts, live, groups, static_cast<long long>(blockIdx.x) * plan.gpb, neg_y != 0, out,
+              inf);
 }
 
 // A schedule's rounds on the block's lane: every round its product phase and
 // one or two store phases, each ending in a barrier of the block (one lane a
 // block).
-template <int kThreads>
+template <int kThreads, bool kInverts>
 __device__ void run(const uint8_t* seq, int rounds, uint32_t* elems) {
   const int t = threadIdx.x;
 #pragma unroll 1
@@ -163,10 +541,10 @@ __device__ void run(const uint8_t* seq, int rounds, uint32_t* elems) {
     const uint32_t rid = seq[r];
     bls::slot_phase(rid, elems, t, kThreads);
     __syncthreads();
-    bls::store_phase(rid, 0, elems, t, kThreads);
+    bls::store_phase<kInverts>(rid, 0, elems, t, kThreads);
     __syncthreads();
     if (bls::round_stores(rid, 1) != 0) {  // the same for every thread of the block
-      bls::store_phase(rid, 1, elems, t, kThreads);
+      bls::store_phase<kInverts>(rid, 1, elems, t, kThreads);
       __syncthreads();
     }
   }
@@ -179,12 +557,12 @@ bls_miller_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ p
   const long long i = blockIdx.x;
   miller_in(q, p, n, i, elems, threadIdx.x, kMillerThreads);
   __syncthreads();
-  run<kMillerThreads>(sched::kMillerSeq, sched::kMillerRounds, elems);
+  run<kMillerThreads, false>(sched::kMillerSeq, sched::kMillerRounds, elems);
   f12_out(elems, sched::kMillerOut, out + i * kF12Words, threadIdx.x, kMillerThreads);
 }
 
 template <int kThreads>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 bls_final_exp_kernel(const uint32_t* __restrict__ f, const uint8_t* __restrict__ gate, long long n,
                      uint8_t* __restrict__ ok, uint32_t* __restrict__ out) {
   __shared__ __align__(16) uint32_t elems[sched::kExpElems * bls::kWords];
@@ -192,7 +570,7 @@ bls_final_exp_kernel(const uint32_t* __restrict__ f, const uint8_t* __restrict__
   load_consts(sched::kExpConstWords, sched::kExpConsts, elems, threadIdx.x, kThreads);
   f12_in(f + i * kF12Words, sched::kExpIn, elems, threadIdx.x, kThreads);
   __syncthreads();
-  run<kThreads>(sched::kExpSeq, sched::kExpRounds, elems);
+  run<kThreads, true>(sched::kExpSeq, sched::kExpRounds, elems);
   if (threadIdx.x == 0) {
     ok[i] = gate[i] != 0 && bls::is_one(elems, sched::kExpOut);
   }
@@ -210,23 +588,30 @@ bls_final_exp_kernel(const uint32_t* __restrict__ f, const uint8_t* __restrict__
 
 // groups x v points of `coords` field elements (2: G1, 4: G2) with a live
 // byte each -> groups x coords affine field elements and an infinity byte.
-extern "C" int bls_merge(const void* pts, const void* live, long long groups, int v, int coords,
-                         int neg_y, void* out, void* inf, void* stream) {
+// A block takes merge_plan's groups, with its dynamic shared memory.
+extern "C" int bls_merge(const void* pts, const void* live, long long groups, int v, int coords, int neg_y,
+                         void* out, void* inf, void* stream) {
   if (groups <= 0) {
     return 0;
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* p = static_cast<const uint32_t*>(pts);
-  const auto* l = static_cast<const uint8_t*>(live);
-  auto* o = static_cast<uint32_t*>(out);
-  auto* f = static_cast<uint8_t*>(inf);
-  if (coords == 2) {
-    bls_merge_kernel<bls::Fp><<<static_cast<unsigned int>(groups), kMergeThreads, 0, s>>>(
-        p, l, v, coords, neg_y, o, f);
-  } else {
-    bls_merge_kernel<bls::Fp2><<<static_cast<unsigned int>(groups), kMergeThreads, 0, s>>>(
-        p, l, v, coords, neg_y, o, f);
+  if (v <= 0 || (coords != 2 && coords != 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const MergePlan plan = merge_plan(v, coords, groups);
+  const size_t bytes = static_cast<size_t>(plan.words) * sizeof(uint32_t);
+  const auto kernel = plan.threads == kMergeWideThreads ? bls_merge_kernel<kMergeWideThreads>
+                                                        : bls_merge_kernel<kMergeThreads>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (e != cudaSuccess) {
+      return static_cast<int>(e);
+    }
+  }
+  const long long blocks = (groups + plan.gpb - 1) / plan.gpb;
+  kernel<<<static_cast<unsigned int>(blocks), plan.threads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(pts), static_cast<const uint8_t*>(live), groups, plan, neg_y,
+      static_cast<uint32_t*>(out), static_cast<uint8_t*>(inf));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -273,29 +658,6 @@ extern "C" int bls_final_exp(const void* f, const void* gate, long long n, void*
 
 namespace {
 
-template <class F>
-void merge_group(const uint32_t* pts, const uint8_t* live, int v, int coords, bool neg_y, uint32_t* out,
-                 uint8_t* inf) {
-  bls::Jac<F> tree[kMergeThreads];
-  for (int t = 0; t < kMergeThreads; ++t) {
-    bls::Jac<F> acc = bls::infinity(static_cast<const bls::Jac<F>*>(nullptr));
-    for (int i = t; i < v; i += kMergeThreads) {
-      if (live[i]) {
-        bls::Jac<F> p;
-        bls::load_point(pts + static_cast<long long>(i) * coords * bls::kWords, p);
-        acc = bls::jac_add(acc, p);
-      }
-    }
-    tree[t] = acc;
-  }
-  for (int s = kMergeThreads / 2; s > 0; s >>= 1) {
-    for (int t = 0; t < s; ++t) {
-      tree[t] = bls::jac_add(tree[t], tree[t + s]);
-    }
-  }
-  *inf = bls::store_affine(out, tree[0], neg_y);
-}
-
 // A schedule's rounds as the kernels run them: phase by phase, the threads
 // of a phase one after another; `elems` stands for the lane's shared memory.
 void run_host(const uint8_t* seq, int rounds, uint32_t* elems, int threads) {
@@ -323,15 +685,30 @@ void each_thread(int threads, Fn fn) {
 
 extern "C" int bls_merge_host(const uint32_t* pts, const uint8_t* live, long long groups, int v,
                               int coords, int neg_y, uint32_t* out, uint8_t* inf) {
-  for (long long g = 0; g < groups; ++g) {
-    const uint32_t* gp = pts + g * v * coords * bls::kWords;
-    uint32_t* go = out + g * coords * bls::kWords;
-    if (coords == 2) {
-      merge_group<bls::Fp>(gp, live + g * v, v, coords, neg_y != 0, go, inf + g);
-    } else {
-      merge_group<bls::Fp2>(gp, live + g * v, v, coords, neg_y != 0, go, inf + g);
-    }
+  if (groups <= 0) {
+    return 0;
   }
+  if (v <= 0 || (coords != 2 && coords != 4)) {
+    return 1;
+  }
+  const MergePlan plan = merge_plan(v, coords, groups);
+  std::vector<uint32_t> smem(plan.words);
+  Block blk{plan.threads};
+  for (long long first = 0; first < groups; first += plan.gpb) {
+    merge_block(blk, plan, smem.data(), pts, live, groups, first, neg_y != 0, out, inf);
+  }
+  return 0;
+}
+
+// The launch's plan: threads and groups a block, points a group's region,
+// the shared memory's words (the CPU tests' view of the packing).
+extern "C" int bls_merge_plan_host(int v, int coords, long long groups, int* threads, int* gpb, int* capg,
+                                   int* words) {
+  const MergePlan plan = merge_plan(v, coords, groups);
+  *threads = plan.threads;
+  *gpb = plan.gpb;
+  *capg = plan.capg;
+  *words = plan.words;
   return 0;
 }
 
@@ -405,22 +782,51 @@ extern "C" int bls_f12_op_host(int op, const uint32_t* a, const uint32_t* b, uin
   return 0;
 }
 
-// P + Q on G2 for n pairs of affine points with infinity bytes (the
-// complete addition, then the affine map).
-extern "C" int bls_g2_add_host(const uint32_t* p, const uint8_t* p_inf, const uint32_t* q,
-                               const uint8_t* q_inf, uint32_t* out, uint8_t* out_inf, long long n) {
+// One complete addition of the merge for n pairs of projective points (3
+// elements each on G1: X, Y, Z; 6 on G2), P and Q side by side: in, n x 2 x
+// (3 or 6) elements -> out, n x (3 or 6).  mixed: the affine form (both Z =
+// 1).
+extern "C" int bls_add_host(int coords, int mixed, const uint32_t* in, uint32_t* out, long long n) {
+  const int half = coords == 2 ? 3 : 6, kind = (coords == 2 ? 0 : 12) + (mixed ? 6 : 0);
+  const int f1 = sched::kMergeKinds[kind], s1 = sched::kMergeKinds[kind + 1];
+  const int f2 = sched::kMergeKinds[kind + 2], s2 = sched::kMergeKinds[kind + 3];
+  const int fo = sched::kMergeKinds[kind + 4];
+  std::vector<uint32_t> p1(s1 * bls::kWords), p2(s2 * bls::kWords);
   for (long long i = 0; i < n; ++i) {
-    bls::Jac<bls::Fp2> a = bls::load_g2(p + i * 4 * bls::kWords);
-    bls::Jac<bls::Fp2> b = bls::load_g2(q + i * 4 * bls::kWords);
-    if (p_inf[i]) {
-      a.z = bls::f2_zero();
+    const uint32_t* pin = in + i * 2 * half * bls::kWords;
+    for (int s = 0; s < s1; ++s) {
+      bls::store(p1.data() + s * bls::kWords,
+                 bls::mul(bls::merge_eval(sched::kMergeForms[f1 + 2 * s], nullptr, pin, false),
+                          bls::merge_eval(sched::kMergeForms[f1 + 2 * s + 1], nullptr, pin, false)));
     }
-    if (q_inf[i]) {
-      b.z = bls::f2_zero();
+    for (int s = 0; s < s2; ++s) {
+      bls::store(p2.data() + s * bls::kWords,
+                 bls::mul(bls::merge_eval(sched::kMergeForms[f2 + 2 * s], p1.data(), pin, false),
+                          bls::merge_eval(sched::kMergeForms[f2 + 2 * s + 1], p1.data(), pin, false)));
     }
-    out_inf[i] = bls::store_affine(out + i * 4 * bls::kWords, bls::jac_add(a, b), false);
+    for (int e = 0; e < half; ++e) {
+      bls::store(out + (i * half + e) * bls::kWords,
+                 bls::merge_eval(sched::kMergeForms[fo + e], p2.data(), nullptr, true));
+    }
   }
   return 0;
+}
+
+// P + Q on G2 for n pairs of affine points with infinity bytes: the merge
+// of each pair (the complete addition, then the affine map).
+extern "C" int bls_g2_add_host(const uint32_t* p, const uint8_t* p_inf, const uint32_t* q,
+                               const uint8_t* q_inf, uint32_t* out, uint8_t* out_inf, long long n) {
+  std::vector<uint32_t> pts(n * 2 * 4 * bls::kWords);
+  std::vector<uint8_t> live(n * 2);
+  for (long long i = 0; i < n; ++i) {
+    for (int w = 0; w < 4 * bls::kWords; ++w) {
+      pts[(2 * i) * 4 * bls::kWords + w] = p[i * 4 * bls::kWords + w];
+      pts[(2 * i + 1) * 4 * bls::kWords + w] = q[i * 4 * bls::kWords + w];
+    }
+    live[2 * i] = p_inf[i] == 0;
+    live[2 * i + 1] = q_inf[i] == 0;
+  }
+  return bls_merge_host(pts.data(), live.data(), n, 2, 4, 0, out, out_inf);
 }
 
 #endif

@@ -1,7 +1,7 @@
-// BLS12-381 lane arithmetic of the pairing kernels (bls12_381.cu): the base
-// field in registers, the interpreter of the Miller loop's and the final
-// exponentiation's schedules (bls12_381_schedule.cuh), and the Jacobian
-// points of the merge.
+// BLS12-381 arithmetic of the kernels in bls12_381.cu: the base field in
+// registers, the interpreter of the Miller loop's and the final
+// exponentiation's schedules (bls12_381_schedule.cuh), and the sums of the
+// merge's addition forms.
 //
 // Field elements mod p are 12 little-endian 32-bit words in the Montgomery
 // domain with R = 2^384, canonical (< p) wherever they are stored: p < 2^381,
@@ -10,8 +10,8 @@
 // for a_i b and two for m p (mad.lo.cc / madc.hi.cc), then one conditional
 // subtraction.  Every PTX instruction sits in its own asm statement with a
 // C++ twin on an explicit carry (Carry), so a host build runs the same
-// chains.  The one inversion is Kaliski's binary Montgomery inverse: no
-// product, about 2 x 381 steps of word adds and shifts.
+// chains.  The inversion is a Bernstein-Yang safegcd on 30-bit limbs: at
+// most 1,110 divsteps, then one product to the Montgomery domain.
 //
 // The pairing kernels run one lane on a block of threads and keep its values
 // in shared memory as elements (12 words each).  A schedule is a sequence of
@@ -34,10 +34,8 @@
 #include "lane.cuh"
 
 #if defined(__CUDACC__)
-#define BLS_CALL __device__ __noinline__
 #define BLS_CONST __host__ __device__ constexpr
 #else
-#define BLS_CALL inline
 #define BLS_CONST constexpr
 #endif
 
@@ -47,14 +45,6 @@ constexpr int kWords = 12;  // 32-bit words of a field element
 
 struct Fp {
   uint32_t w[kWords];
-};
-struct Fp2 {
-  Fp c0, c1;
-};
-// A Jacobian point (x / z^2, y / z^3); z == 0 is the point at infinity.
-template <class F>
-struct Jac {
-  F x, y, z;
 };
 
 // Word i of p (0 beyond its 12 words), and of R mod p: one in the Montgomery
@@ -349,120 +339,212 @@ LANE_FN Fp mul(const Fp& a, const Fp& b) {
 
 LANE_FN Fp sqr(const Fp& a) { return mul(a, a); }
 
-// -- Kaliski's inverse ----------------------------------------------------------
+// -- the inverse: Bernstein-Yang safegcd ------------------------------------
+//
+// x^-1 mod p by divsteps (Bernstein and Yang, "Fast constant-time gcd
+// computation and modular inversion", 2019) on 13 signed limbs of 30 bits,
+// branch-free, as secp256k1_recover.cu's modinv but with the paper's
+// original divstep (delta starts at 1), whose count its Theorem 11.2 bounds:
+// for f = p and 0 <= g < p, f^2 + 4 g^2 <= 5 * 2^(2 * 381), so
+// floor((49 * 381 + 57) / 17) = 1,101 divsteps reach g = 0, so kInvBatches
+// batches of 30 (1,110) always do.  The loop stops at the first batch that
+// starts with g = 0 (then f = +-1 and d = +-x^-1): random inputs take about
+// 790 divsteps, 27 batches.  The inputs are public, so the early stop leaks
+// nothing.  The transition matrix of a batch and the bounds that keep d and
+// e in (-2p, p) are libsecp256k1's (modinv32).
 
-LANE_FN void shr1(uint32_t* x) {
-#pragma unroll
-  for (int i = 0; i < kWords - 1; ++i) {
-    x[i] = (x[i] >> 1) | (x[i + 1] << 31);
-  }
-  x[kWords - 1] >>= 1;
+constexpr int kS30 = 13;  // limbs: 390 bits
+constexpr int kInvBatches = 37;
+constexpr int32_t kM30 = 0x3FFFFFFF;
+constexpr uint32_t kPInv30 = 0x30003u;  // p^-1 mod 2^30
+
+struct S30 {
+  int32_t v[kS30];  // value = sum v[i] 2^(30 i)
+};
+
+BLS_CONST int32_t p_limb(int i) {
+  constexpr int32_t l[kS30] = {0x3fffaaab, 0x27fbffff, 0x153ffffb, 0x2affffac, 0x30f6241e, 0x034a83da, 0x112bf673,
+                               0x12e13ce1, 0x2cd76477, 0x1ed90d2e, 0x29a4b1ba, 0x3a8e5ff9, 0x001a0111};
+  return l[i];
 }
 
-LANE_FN void shl1(uint32_t* x) {
-#pragma unroll
-  for (int i = kWords - 1; i > 0; --i) {
-    x[i] = (x[i] << 1) | (x[i - 1] >> 31);
-  }
-  x[0] <<= 1;
+// Word i of R^3 mod p: a Montgomery product by it takes x^-1 to the
+// Montgomery form of the inverse.
+BLS_CONST uint32_t r3_word(int i) {
+  constexpr uint32_t w[kWords] = {0xd94ca1e0u, 0xed48ac6bu, 0x03a7adf8u, 0x315f831eu, 0x615e29ddu, 0x9a53352au,
+                                  0x921e1761u, 0x34c04e5eu, 0x65724728u, 0x2512d435u, 0x91755d4du, 0x0aa63460u};
+  return w[i];
 }
 
-// x += y (no carry out: both stay below 2^383).
-LANE_FN void add_to(uint32_t* x, const uint32_t* y) {
-  Carry k;
-  x[0] = add_cc(k, x[0], y[0]);
+LANE_FN S30 to_s30(const Fp& a) {
+  S30 r;
 #pragma unroll
-  for (int i = 1; i < kWords - 1; ++i) {
-    x[i] = addc_cc(k, x[i], y[i]);
+  for (int i = 0; i < kS30; ++i) {
+    const int bit = 30 * i, word = bit >> 5, sh = bit & 31;
+    uint32_t v = a.w[word] >> sh;
+    if (sh > 2 && word + 1 < kWords) {
+      v |= a.w[word + 1] << (32 - sh);
+    }
+    r.v[i] = static_cast<int32_t>(v & kM30);
   }
-  x[kWords - 1] = addc(k, x[kWords - 1], y[kWords - 1]);
+  return r;
 }
 
-// x -= y where x >= y.
-LANE_FN void sub_from(uint32_t* x, const uint32_t* y) {
-  Carry k;
-  x[0] = sub_cc(k, x[0], y[0]);
+// Limbs in [0, 2^30), value below 2^384.
+LANE_FN Fp from_s30(const S30& a) {
+  Fp r = fp_zero();
 #pragma unroll
-  for (int i = 1; i < kWords - 1; ++i) {
-    x[i] = subc_cc(k, x[i], y[i]);
+  for (int i = 0; i < kS30; ++i) {
+    const int bit = 30 * i, word = bit >> 5, sh = bit & 31;
+    const uint32_t v = static_cast<uint32_t>(a.v[i]);
+    r.w[word] |= v << sh;
+    if (sh > 2 && word + 1 < kWords) {
+      r.w[word + 1] |= v >> (32 - sh);
+    }
   }
-  x[kWords - 1] = subc(k, x[kWords - 1], y[kWords - 1]);
+  return r;
 }
 
-LANE_FN bool greater(const uint32_t* x, const uint32_t* y) {
-  Carry k;
-  (void)sub_cc(k, y[0], x[0]);
-#pragma unroll
-  for (int i = 1; i < kWords; ++i) {
-    (void)subc_cc(k, y[i], x[i]);
+// 30 divsteps on the low bits of f (odd) and g, branch-free; eta = -delta.
+// Returns the new eta and the transition matrix t = (u, v, q, r), scaled by
+// 2^30.
+LANE_FN int32_t divsteps_30(int32_t eta, uint32_t f, uint32_t g, int32_t t[4]) {
+  uint32_t u = 1, v = 0, q = 0, r = 1;
+#pragma unroll 5
+  for (int i = 0; i < 30; ++i) {
+    uint32_t c1 = static_cast<uint32_t>(eta >> 31);  // delta > 0
+    const uint32_t c2 = 0u - (g & 1u);               // g odd
+    const uint32_t x = (f ^ c1) - c1;
+    const uint32_t y = (u ^ c1) - c1;
+    const uint32_t z = (v ^ c1) - c1;
+    g += x & c2;
+    q += y & c2;
+    r += z & c2;
+    c1 &= c2;  // the swap: delta -> 1 - delta, else delta -> 1 + delta
+    eta = (eta ^ static_cast<int32_t>(c1)) - static_cast<int32_t>(~c1 & 1u);
+    f += g & c1;
+    u += q & c1;
+    v += r & c1;
+    g >>= 1;
+    u <<= 1;
+    v <<= 1;
   }
-  return subc(k, 0, 0) != 0;  // y - x borrows
+  t[0] = static_cast<int32_t>(u);
+  t[1] = static_cast<int32_t>(v);
+  t[2] = static_cast<int32_t>(q);
+  t[3] = static_cast<int32_t>(r);
+  return eta;
 }
 
-// a^-1 in the Montgomery domain (a = A R: returns A^-1 R), and 0 for 0.
-// Kaliski's almost inverse on (u, v) = (p, a) with p = u s + v r gives
-// x = a^-1 2^k mod p for 381 <= k <= 762 (r and s stay below 2p); then
-// 768 - k modular doublings make it a^-1 2^768 = A^-1 R.
+// (d, e) = t (d, e) / 2^30 mod p, keeping both in (-2p, p).
+LANE_FN void update_de_30(S30& d, S30& e, const int32_t t[4]) {
+  const int32_t u = t[0], v = t[1], q = t[2], r = t[3];
+  const int32_t sd = d.v[kS30 - 1] >> 31, se = e.v[kS30 - 1] >> 31;
+  int32_t md = (u & sd) + (v & se);
+  int32_t me = (q & sd) + (r & se);
+  int64_t cd = static_cast<int64_t>(u) * d.v[0] + static_cast<int64_t>(v) * e.v[0];
+  int64_t ce = static_cast<int64_t>(q) * d.v[0] + static_cast<int64_t>(r) * e.v[0];
+  md -= static_cast<int32_t>((kPInv30 * static_cast<uint32_t>(cd) + static_cast<uint32_t>(md)) & kM30);
+  me -= static_cast<int32_t>((kPInv30 * static_cast<uint32_t>(ce) + static_cast<uint32_t>(me)) & kM30);
+  cd += static_cast<int64_t>(p_limb(0)) * md;
+  ce += static_cast<int64_t>(p_limb(0)) * me;
+  cd >>= 30;
+  ce >>= 30;
+#pragma unroll
+  for (int i = 1; i < kS30; ++i) {
+    cd += static_cast<int64_t>(u) * d.v[i] + static_cast<int64_t>(v) * e.v[i];
+    ce += static_cast<int64_t>(q) * d.v[i] + static_cast<int64_t>(r) * e.v[i];
+    cd += static_cast<int64_t>(p_limb(i)) * md;
+    ce += static_cast<int64_t>(p_limb(i)) * me;
+    d.v[i - 1] = static_cast<int32_t>(cd) & kM30;
+    cd >>= 30;
+    e.v[i - 1] = static_cast<int32_t>(ce) & kM30;
+    ce >>= 30;
+  }
+  d.v[kS30 - 1] = static_cast<int32_t>(cd);
+  e.v[kS30 - 1] = static_cast<int32_t>(ce);
+}
+
+// (f, g) = t (f, g) / 2^30, exactly.
+LANE_FN void update_fg_30(S30& f, S30& g, const int32_t t[4]) {
+  const int32_t u = t[0], v = t[1], q = t[2], r = t[3];
+  int64_t cf = static_cast<int64_t>(u) * f.v[0] + static_cast<int64_t>(v) * g.v[0];
+  int64_t cg = static_cast<int64_t>(q) * f.v[0] + static_cast<int64_t>(r) * g.v[0];
+  cf >>= 30;
+  cg >>= 30;
+#pragma unroll
+  for (int i = 1; i < kS30; ++i) {
+    cf += static_cast<int64_t>(u) * f.v[i] + static_cast<int64_t>(v) * g.v[i];
+    cg += static_cast<int64_t>(q) * f.v[i] + static_cast<int64_t>(r) * g.v[i];
+    f.v[i - 1] = static_cast<int32_t>(cf) & kM30;
+    cf >>= 30;
+    g.v[i - 1] = static_cast<int32_t>(cg) & kM30;
+    cg >>= 30;
+  }
+  f.v[kS30 - 1] = static_cast<int32_t>(cf);
+  g.v[kS30 - 1] = static_cast<int32_t>(cg);
+}
+
+LANE_FN void carry_30(S30& r) {
+#pragma unroll
+  for (int i = 0; i < kS30 - 1; ++i) {
+    r.v[i + 1] += r.v[i] >> 30;
+    r.v[i] &= kM30;
+  }
+}
+
+// r in (-2p, p) to [0, p), negated first where sign < 0.
+LANE_FN void normalize_30(S30& r, int32_t sign) {
+  int32_t add = r.v[kS30 - 1] >> 31;
+  const int32_t neg = sign >> 31;
+#pragma unroll
+  for (int i = 0; i < kS30; ++i) {
+    r.v[i] += p_limb(i) & add;
+    r.v[i] = (r.v[i] ^ neg) - neg;
+  }
+  carry_30(r);
+  add = r.v[kS30 - 1] >> 31;
+#pragma unroll
+  for (int i = 0; i < kS30; ++i) {
+    r.v[i] += p_limb(i) & add;
+  }
+  carry_30(r);
+}
+
+// a^-1 in the Montgomery domain (a = A R: returns A^-1 R), and 0 for 0: the
+// safegcd inverse of the word value, times R^3 in a Montgomery product.
 LANE_FN Fp inv(const Fp& a) {
-  if (is_zero(a)) {
-    return a;
-  }
-  uint32_t u[kWords], v[kWords], r[kWords], s[kWords];
+  S30 d, e, f, g = to_s30(a);
 #pragma unroll
-  for (int i = 0; i < kWords; ++i) {
-    u[i] = p_word(i);
-    v[i] = a.w[i];
-    r[i] = 0;
-    s[i] = i == 0;
+  for (int i = 0; i < kS30; ++i) {
+    d.v[i] = 0;
+    e.v[i] = 0;
+    f.v[i] = p_limb(i);
   }
-  int k = 0;
-  for (;;) {
-    uint32_t any = 0;
+  e.v[0] = 1;
+  int32_t eta = -1;
+#pragma unroll 1
+  for (int i = 0; i < kInvBatches; ++i) {
+    int32_t any = 0;
 #pragma unroll
-    for (int i = 0; i < kWords; ++i) {
-      any |= v[i];
+    for (int k = 0; k < kS30; ++k) {
+      any |= g.v[k];
     }
     if (any == 0) {
       break;
     }
-    if ((u[0] & 1u) == 0) {
-      shr1(u);
-      shl1(s);
-    } else if ((v[0] & 1u) == 0) {
-      shr1(v);
-      shl1(r);
-    } else if (greater(u, v)) {
-      sub_from(u, v);
-      shr1(u);
-      add_to(r, s);
-      shl1(s);
-    } else {
-      sub_from(v, u);
-      shr1(v);
-      add_to(s, r);
-      shl1(r);
-    }
-    ++k;
+    int32_t t[4];
+    eta = divsteps_30(eta, static_cast<uint32_t>(f.v[0]), static_cast<uint32_t>(g.v[0]), t);
+    update_de_30(d, e, t);
+    update_fg_30(f, g, t);
   }
-  Fp x;
+  normalize_30(d, f.v[kS30 - 1]);
+  Fp r3;
 #pragma unroll
   for (int i = 0; i < kWords; ++i) {
-    x.w[i] = r[i];
+    r3.w[i] = r3_word(i);
   }
-  x = reduce_once(x);  // r < 2p
-#pragma unroll
-  for (int i = 0; i < kWords; ++i) {
-    u[i] = p_word(i);
-  }
-  sub_from(u, x.w);  // p - r = a^-1 2^k
-#pragma unroll
-  for (int i = 0; i < kWords; ++i) {
-    x.w[i] = u[i];
-  }
-  for (; k < 2 * 384; ++k) {
-    x = add(x, x);
-  }
-  return x;
+  return mul(from_s30(d), r3);
 }
 
 // -- elements in shared memory and the schedules' interpreter -----------------
@@ -602,11 +684,13 @@ LANE_FN void slot_phase(uint32_t rid, uint32_t* elems, int t, int threads) {
 
 // Store phase 0 or 1 of round `rid`: its stores (phase 0: the short stores
 // and the parts of the long ones; phase 1: the sums of the parts).  An
-// inverting round's one store is inverted.
+// inverting round's one store is inverted; a schedule with no inverting
+// round (the Miller loop's) leaves the inverse out of its code.
+template <bool kInverts = true>
 LANE_FN void store_phase(uint32_t rid, int phase, uint32_t* elems, int t, int threads) {
   const uint32_t first = sched::kRounds[3 * rid + 1] + (phase ? round_stores(rid, 0) : 0u);
   const uint32_t n = round_stores(rid, phase);
-  const bool invert = (sched::kRounds[3 * rid + 2] >> 24) == static_cast<uint32_t>(sched::kInvert);
+  const bool invert = kInverts && (sched::kRounds[3 * rid + 2] >> 24) == static_cast<uint32_t>(sched::kInvert);
 #pragma unroll 1
   for (uint32_t s = t; s < n; s += threads) {
     const Fp v = eval(sched::kStoreForms[2 * (first + s) + 1], elems);
@@ -625,133 +709,95 @@ LANE_FN bool is_one(const uint32_t* elems, const uint16_t* at) {
   return diff == 0;
 }
 
-// -- Fp2 and Jacobian points: the merge's arithmetic ---------------------------
+// -- the merge's sums -----------------------------------------------------------
 
-LANE_FN Fp2 f2_zero() { return Fp2{fp_zero(), fp_zero()}; }
-LANE_FN Fp2 f2_one() { return Fp2{fp_one(), fp_zero()}; }
-LANE_FN bool is_zero(const Fp2& a) { return is_zero(a.c0) && is_zero(a.c1); }
-LANE_FN Fp2 add(const Fp2& a, const Fp2& b) { return Fp2{add(a.c0, b.c0), add(a.c1, b.c1)}; }
-LANE_FN Fp2 sub(const Fp2& a, const Fp2& b) { return Fp2{sub(a.c0, b.c0), sub(a.c1, b.c1)}; }
-LANE_FN Fp2 neg(const Fp2& a) { return Fp2{neg(a.c0), neg(a.c1)}; }
-
-BLS_CALL Fp2 mul(const Fp2& a, const Fp2& b) {
-  const Fp t0 = mul(a.c0, b.c0);
-  const Fp t1 = mul(a.c1, b.c1);
-  const Fp t2 = mul(add(a.c0, a.c1), add(b.c0, b.c1));
-  return Fp2{sub(t0, t1), sub(sub(t2, t0), t1)};
+// acc += c x for a small c (13 words, no carry out of acc[12]): one row of
+// the product's chains.
+LANE_FN void acc_mad(uint32_t* acc, const Fp& x, uint32_t c) {
+  Carry k;
+  acc[0] = mad_lo_cc(k, c, x.w[0], acc[0]);
+#pragma unroll
+  for (int j = 1; j < kWords; ++j) {
+    acc[j] = madc_lo_cc(k, c, x.w[j], acc[j]);
+  }
+  acc[kWords] = addc(k, acc[kWords], 0);
+  acc[1] = mad_hi_cc(k, c, x.w[0], acc[1]);
+#pragma unroll
+  for (int j = 1; j < kWords - 1; ++j) {
+    acc[j + 1] = madc_hi_cc(k, c, x.w[j], acc[j + 1]);
+  }
+  acc[kWords] = madc_hi(k, c, x.w[kWords - 1], acc[kWords]);
 }
 
-BLS_CALL Fp2 sqr(const Fp2& a) {
-  const Fp t = mul(a.c0, a.c1);
-  return Fp2{mul(add(a.c0, a.c1), sub(a.c0, a.c1)), add(t, t)};
-}
-
-BLS_CALL Fp2 inv(const Fp2& a) {
-  const Fp n = inv(add(sqr(a.c0), sqr(a.c1)));
-  return Fp2{mul(a.c0, n), neg(mul(a.c1, n))};
-}
-
-// k * a for a small k >= 1.
-template <class F>
-LANE_FN F muli(const F& a, int k) {
-  F r = a;
-  for (int i = 1; i < k; ++i) {
-    r = add(r, a);
+// x, or p - x where mask is all ones (x <= p): ~x + p + 1 on one chain, so
+// both signs take one path.
+LANE_FN Fp neg_if(const Fp& x, uint32_t mask) {
+  Carry k;
+  Fp r;
+  (void)add_cc(k, mask & 1u, 0xffffffffu);  // carry := 1 for a negation
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    r.w[i] = addc_cc(k, x.w[i] ^ mask, p_word(i) & mask);
   }
   return r;
 }
 
-// 2P, the JAX package's _jac_ops double (no special case: 2 * infinity has
-// z = 0 again).
-template <class F>
-BLS_CALL Jac<F> jac_double(const Jac<F>& p) {
-  const F a = sqr(p.x);
-  const F b = sqr(p.y);
-  const F c = sqr(b);
-  const F t = sqr(add(p.x, b));
-  const F d = muli(sub(sub(t, a), c), 2);
-  const F e = muli(a, 3);
-  const F x3 = sub(sqr(e), muli(d, 2));
-  const F y3 = sub(mul(e, sub(d, x3)), muli(c, 8));
-  const F z3 = muli(mul(p.y, p.z), 2);
-  return Jac<F>{x3, y3, z3};
-}
-
-// P + Q, _jac_ops' add_complete: the generic sum, 2P where P == Q, and the
-// other point where one is at infinity; P + (-P) has z == 0.
-template <class F>
-BLS_CALL Jac<F> jac_add(const Jac<F>& p, const Jac<F>& q) {
-  if (is_zero(p.z)) {
-    return q;
+// The value of a 13-word sum below 2^390, below 2p: less q p, where q =
+// floor(top / (p_top + 1)) of its top 64 bits and p's top word is
+// floor(acc / p) or one less (the two differ by less than 2^-19).  Canonical
+// after one conditional subtraction; a product's operand need not be (mul
+// takes operands below 3p: 9p^2 < p R).
+LANE_FN Fp acc_reduce_wide(const uint32_t* acc) {
+  const uint64_t top = static_cast<uint64_t>(acc[kWords]) << 32 | acc[kWords - 1];
+  const uint32_t q = static_cast<uint32_t>(top / (static_cast<uint64_t>(p_word(kWords - 1)) + 1));
+  uint32_t qp[kWords + 1];
+  Carry k;
+  qp[0] = mad_lo_cc(k, q, p_word(0), 0);
+#pragma unroll
+  for (int j = 1; j < kWords; ++j) {
+    qp[j] = madc_lo_cc(k, q, p_word(j), 0);
   }
-  if (is_zero(q.z)) {
-    return p;
+  qp[kWords] = addc(k, 0, 0);
+  qp[1] = mad_hi_cc(k, q, p_word(0), qp[1]);
+#pragma unroll
+  for (int j = 1; j < kWords - 1; ++j) {
+    qp[j + 1] = madc_hi_cc(k, q, p_word(j), qp[j + 1]);
   }
-  const F z1s = sqr(p.z);
-  const F z2s = sqr(q.z);
-  const F u1 = mul(p.x, z2s);
-  const F u2 = mul(q.x, z1s);
-  const F s1 = mul(p.y, mul(z2s, q.z));
-  const F s2 = mul(q.y, mul(z1s, p.z));
-  const F h = sub(u2, u1);
-  const F r = sub(s2, s1);
-  if (is_zero(h) && is_zero(r)) {
-    return jac_double(p);
+  qp[kWords] = madc_hi(k, q, p_word(kWords - 1), qp[kWords]);
+  Fp r;
+  r.w[0] = sub_cc(k, acc[0], qp[0]);
+#pragma unroll
+  for (int j = 1; j < kWords; ++j) {
+    r.w[j] = subc_cc(k, acc[j], qp[j]);  // the 13th word of the difference is 0
   }
-  const F hs = sqr(h);
-  const F hc = mul(hs, h);
-  const F u1hs = mul(u1, hs);
-  const F x3 = sub(sub(sqr(r), hc), muli(u1hs, 2));
-  const F y3 = sub(mul(r, sub(u1hs, x3)), mul(s1, hc));
-  const F z3 = mul(mul(p.z, q.z), h);
-  return Jac<F>{x3, y3, z3};
+  return r;
 }
 
-// The affine point (x, y) of p, (0, 0) for infinity; returns whether p is
-// the point at infinity.
-template <class F>
-BLS_CALL bool to_affine(const Jac<F>& p, F& x, F& y) {
-  const F zi = inv(p.z);
-  const F zi2 = sqr(zi);
-  x = mul(p.x, zi2);
-  y = mul(p.y, mul(zi2, zi));
-  return is_zero(p.z);
-}
-
-LANE_FN Fp2 load2(const uint32_t* src) { return Fp2{load(src), load(src + kWords)}; }
-
-// The affine point of `coords` field elements (2: G1 x, y; 4: G2 x0, x1,
-// y0, y1) at src as a Jacobian point with z = 1.
-LANE_FN Jac<Fp> load_g1(const uint32_t* src) { return Jac<Fp>{load(src), load(src + kWords), fp_one()}; }
-LANE_FN Jac<Fp2> load_g2(const uint32_t* src) {
-  return Jac<Fp2>{load2(src), load2(src + 2 * kWords), f2_one()};
-}
-LANE_FN Jac<Fp> infinity(const Jac<Fp>*) { return Jac<Fp>{fp_zero(), fp_zero(), fp_zero()}; }
-LANE_FN Jac<Fp2> infinity(const Jac<Fp2>*) { return Jac<Fp2>{f2_zero(), f2_zero(), f2_zero()}; }
-LANE_FN void load_point(const uint32_t* src, Jac<Fp>& p) { p = load_g1(src); }
-LANE_FN void load_point(const uint32_t* src, Jac<Fp2>& p) { p = load_g2(src); }
-
-// The canonical affine coordinates of p at dst (y negated where neg_y),
-// zeros for infinity; returns whether p is the point at infinity.
-LANE_FN bool store_affine(uint32_t* dst, const Jac<Fp>& p, bool neg_y) {
-  Fp x, y;
-  const bool inf = to_affine(p, x, y);
-  store(dst, x);
-  store(dst + kWords, neg_y ? neg(y) : y);
-  return inf;
-}
-
-LANE_FN bool store_affine(uint32_t* dst, const Jac<Fp2>& p, bool neg_y) {
-  Fp2 x, y;
-  const bool inf = to_affine(p, x, y);
-  if (neg_y) {
-    y = neg(y);
+// The value of a merge form (sched::kMergeForms) whose terms read the pair's
+// products at prod (index < kMergeIn) and its input elements at in, all
+// canonical: each term's element, negated where its coefficient is, times
+// the coefficient's magnitude on the accumulator (one path for every term:
+// a path for the terms of coefficient +-1, seven in ten, measured no
+// faster).  Below 2p (an operand), or canonical where `canonical` (a stored
+// element).
+LANE_FN Fp merge_eval(uint32_t form, const uint32_t* prod, const uint32_t* in, bool canonical) {
+  const uint32_t first = form >> 8, n = form & 0xffu;
+  uint32_t acc[kAccWords];
+#pragma unroll
+  for (int i = 0; i < kAccWords; ++i) {
+    acc[i] = 0;
   }
-  store(dst, x.c0);
-  store(dst + kWords, x.c1);
-  store(dst + 2 * kWords, y.c0);
-  store(dst + 3 * kWords, y.c1);
-  return inf;
+#pragma unroll 1
+  for (uint32_t i = 0; i < n; ++i) {
+    const uint32_t term = sched::kMergeTerms[first + i];
+    const uint32_t e = term >> 8;
+    const int c = static_cast<int>(term & 0xffu) - 128;
+    const uint32_t* src = e < static_cast<uint32_t>(sched::kMergeIn) ? prod + e * kWords
+                                                                      : in + (e - sched::kMergeIn) * kWords;
+    acc_mad(acc, neg_if(load(src), c < 0 ? 0xffffffffu : 0u), static_cast<uint32_t>(c < 0 ? -c : c));
+  }
+  const Fp r = acc_reduce_wide(acc);
+  return canonical ? reduce_once(r) : r;
 }
 
 }  // namespace bls

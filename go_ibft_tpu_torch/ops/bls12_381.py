@@ -20,10 +20,12 @@ here, which the CPU route and the tests run:
   ``_hard_part_stage``, ``_finish_stage``, ``f12_eq_one``).
 
 Each plain version computes what its kernel computes, in the same order
-where the order shows in the result: the merge folds points ``t, t + 128,
-...`` per "thread" and then sums 128 partial sums in a halving tree (with
-complete additions the sum of points on the curve is the same in any
-order, and so is the canonical affine point), and the Miller loop uses the
+where the order shows in the result.  The merge's order does not show: its
+output is the sum's canonical affine point, the same in any order and in
+any coordinates, so the plain version keeps its own (it folds points ``t,
+t + 128, ...`` per "thread", then sums 128 partial sums in a halving tree
+of Jacobian additions) while the kernel adds compacted live points in
+projective coordinates level by level; the Miller loop uses the
 JAX package's Jacobian doubling and line formulas, whose scalings make its
 value the same Fp12 element in all three implementations.  The final
 exponentiation computes the pairing *cubed*: compare it with the host
@@ -72,7 +74,7 @@ __all__ = [
 ]
 
 BLS_X = host.BLS_X  # |x|; the parameter is negative
-MERGE_THREADS = 128  # the merge kernel's threads a group, and its fold order
+MERGE_THREADS = 128  # merge_plain's fold order (its own: the sum does not depend on order)
 _X_BITS = [int(b) for b in bin(BLS_X)[3:]]  # MSB first, the leading 1 skipped
 
 # -- Fp12 as 12 stacked field elements --------------------------------------
@@ -461,8 +463,9 @@ def merge_plain(points: torch.Tensor, live: torch.Tensor, neg_y: bool = False):
     """The merge kernel's function: ``points`` ``(G, V, C, 12)`` (C = 2 for
     G1, 4 for G2) with ``live`` ``(G, V)`` -> the affine sum of each group's
     live points ``(G, C, 12)`` (y negated where ``neg_y``; zeros for
-    infinity) and its infinity flag ``(G,)``.  The kernel's order: "thread"
-    t of 128 folds points t, t + 128, ..., then a halving tree."""
+    infinity) and its infinity flag ``(G,)``.  Its own order ("thread" t of
+    128 folds points t, t + 128, ..., then a halving tree): the sum, and so
+    the output, does not depend on it."""
     g, v, c = points.shape[0], points.shape[1], points.shape[2]
     steps = max(1, -(-v // MERGE_THREADS))
     pad = steps * MERGE_THREADS - v

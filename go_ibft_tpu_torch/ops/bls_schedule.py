@@ -1,9 +1,11 @@
 """The schedules of the two pairing kernels, ``bls_miller`` and
-``bls_final_exp`` (``csrc/bls12_381.cu``).
+``bls_final_exp``, and the merge's addition forms (``bls_merge``; see
+:func:`merge_addition`), all in ``csrc/bls12_381.cu``.
 
-A kernel runs one lane on a block of threads.  The lane's values (inputs,
-constants, the Fp12 accumulator, the points, the lines) live in shared
-memory as *elements*: canonical Fp values of 12 words, Montgomery form.
+A pairing kernel runs one lane on a block of threads.  The lane's values
+(inputs, constants, the Fp12 accumulator, the points, the lines) live in
+shared memory as *elements*: canonical Fp values of 12 words, Montgomery
+form.
 The lane's work is a fixed sequence of *rounds*, each three phases:
 
 1. every thread takes a slot: it forms the slot's two operands as small
@@ -727,6 +729,130 @@ def op_rounds(L: Layout) -> List[List[Round]]:
     return [_finish(ops[k], L) for k in range(len(ops))]
 
 
+# -- the merge's complete additions ------------------------------------------
+#
+# bls_merge adds pairs of projective points (X : Y : Z) with the complete
+# formulas of Renes, Costello and Batina (Eurocrypt 2016) for a = 0:
+# Algorithm 7, and Algorithm 8's mixed form where both points are affine
+# (Z = 1, the first level of the tree).  A pair's addition is two rounds of
+# independent products and a store: round 1's operands are linear forms of
+# the pair's input elements, round 2's of round 1's products (and, in the
+# mixed form, of the inputs), the outputs of round 2's products.  On G2 each
+# Fp2 product is three Fp products (Karatsuba), b3 = 3b = 12 (1 + u); on G1
+# b3 = 12.  A form's term reads the pair's product k (index k < MERGE_IN) or
+# its input element e (index MERGE_IN + e: P's X, Y, Z, then Q's; on G2 each
+# coordinate is two elements, c0 then c1).
+
+MERGE_IN = 32  # the first term index of an input element
+MERGE_COEF = 127  # a term's largest coefficient magnitude
+
+
+class _MergeRound(Round):
+    """A round of the merge's products: operands may read any index."""
+
+    def mul(self, a: Lin, b: Lin) -> Lin:
+        if not a or not b:
+            return {}
+        (sa, ka), (sb, kb) = _norm(a), _norm(b)
+        key = (ka, kb) if ka <= kb else (kb, ka)
+        s = self._index.get(key)
+        if s is None:
+            s = len(self.slots)
+            self.slots.append((dict(key[0]), dict(key[1])))
+            self._index[key] = s
+        return {s: sa * sb}
+
+
+def merge_addition(coords: int, mixed: bool):
+    """P + Q as (round 1, round 2, output forms): the rounds' slots, and the
+    forms of X3, Y3, Z3 (one element each on G1, two on G2) over round 2's
+    products.  ``mixed``: both points are affine with Z = 1 (the element Z
+    of P holds one)."""
+    if coords == 2:
+        el = [{MERGE_IN + e: 1} for e in range(6)]
+        fadd, fsub, fmuli = add, sub, muli
+
+        def b3(x):
+            return muli(x, 12)
+    else:
+        el = [({MERGE_IN + 2 * c: 1}, {MERGE_IN + 2 * c + 1: 1}) for c in range(6)]
+        fadd, fsub, fmuli = f2_add, f2_sub, f2_muli
+
+        def b3(x):
+            return f2_muli(f2_mul_xi(x), 12)
+    (x1, y1, z1), (x2, y2, z2) = el[:3], el[3:]
+    r1, r2 = _MergeRound(), _MergeRound()
+    mul1 = r1.mul if coords == 2 else r1.f2_mul
+    mul2 = r2.mul if coords == 2 else r2.f2_mul
+    t0, t1 = mul1(x1, x2), mul1(y1, y2)
+    a = fsub(mul1(fadd(x1, y1), fadd(x2, y2)), fadd(t0, t1))  # X1 Y2 + X2 Y1
+    if mixed:
+        t2 = z1 if coords == 2 else (z1[0], {})  # Z1 Z2 = 1
+        b = fadd(y1, y2)  # Y1 Z2 + Y2 Z1
+        c = fadd(x1, x2)  # X1 Z2 + X2 Z1
+    else:
+        t2 = mul1(z1, z2)
+        b = fsub(mul1(fadd(y1, z1), fadd(y2, z2)), fadd(t1, t2))
+        c = fsub(mul1(fadd(x1, z1), fadd(x2, z2)), fadd(t0, t2))
+    t0 = fmuli(t0, 3)
+    bt2 = b3(t2)
+    z3 = fadd(t1, bt2)
+    t1 = fsub(t1, bt2)
+    y3 = b3(c)
+    x3_ = fsub(mul2(a, t1), mul2(b, y3))
+    y3_ = fadd(mul2(t1, z3), mul2(y3, t0))
+    z3_ = fadd(mul2(z3, b), mul2(t0, a))
+    outs = [x3_, y3_, z3_] if coords == 2 else [x3_[0], x3_[1], y3_[0], y3_[1], z3_[0], z3_[1]]
+    return r1, r2, outs
+
+
+MERGE_KINDS = ((2, False), (2, True), (4, False), (4, True))  # (coords, mixed) in the header's order
+
+
+def merge_simulate(coords: int, mixed: bool, p, q):
+    """P + Q by the forms on Python integers: ``p``, ``q`` are the points'
+    elements (3 or 6 field values, projective) -> the sum's elements."""
+    r1, r2, outs = merge_addition(coords, mixed)
+    ins = {MERGE_IN + e: v % P for e, v in enumerate(list(p) + list(q))}
+
+    def ev(form, mem):
+        return sum(c * mem[e] for e, c in form.items()) % P
+
+    prod1 = {k: ev(a, ins) * ev(b, ins) % P for k, (a, b) in enumerate(r1.slots)}
+    mem = {**ins, **prod1}
+    prod2 = {k: ev(a, mem) * ev(b, mem) % P for k, (a, b) in enumerate(r2.slots)}
+    return [ev(f, prod2) for f in outs]
+
+
+def _merge_tables():
+    """kMergeTerms, kMergeForms and kMergeKinds (see emit)."""
+    terms: List[int] = []
+    forms: List[int] = []
+    kinds: List[int] = []
+
+    def form(f: Lin) -> int:
+        first = len(terms)
+        for e, c in sorted(f.items()):
+            assert 0 < abs(c) <= MERGE_COEF and e < 256
+            terms.append((e << 8) | (c + 128))
+        # The accumulator stays below 2^390 (bls::acc_reduce_wide's quotient).
+        assert sum(abs(c) for c in f.values()) <= 512
+        assert len(terms) - first < 256
+        return (first << 8) | (len(terms) - first)
+
+    for coords, mixed in MERGE_KINDS:
+        r1, r2, outs = merge_addition(coords, mixed)
+        assert len(r1.slots) <= len(r2.slots) < MERGE_IN
+        row = [len(forms), len(r1.slots)]
+        forms += [form(x) for a, b in r1.slots for x in (a, b)]
+        row += [len(forms), len(r2.slots)]
+        forms += [form(x) for a, b in r2.slots for x in (a, b)]
+        row += [len(forms), len(outs)]
+        forms += [form(x) for x in outs]
+        kinds += row
+    return terms, forms, kinds
+
+
 # -- running a schedule on Python integers ------------------------------------
 
 
@@ -845,8 +971,8 @@ def emit() -> str:
     op_first.append(len(op_seq))
     assert len(tab.rounds) < 256
     out = [
-        "// The pairing kernels' schedules: tables for the interpreter in\n"
-        "// bls12_381.cuh.  Generated by go_ibft_tpu_torch/ops/bls_schedule.py\n"
+        "// The pairing kernels' schedules and the merge's addition forms: tables\n"
+        "// for bls12_381.cuh and bls12_381.cu.  Generated by go_ibft_tpu_torch/ops/bls_schedule.py\n"
         "// (python -m go_ibft_tpu_torch.ops.bls_schedule), which describes them;\n"
         "// do not edit.\n",
         "#pragma once\n\n#include \"lane.cuh\"\n\n"
@@ -890,6 +1016,21 @@ def emit() -> str:
         _array("uint16_t", "kExpIn", le.bufs["IN"], 16),
         _array("uint16_t", "kExpB", le.bufs["B"], 16),
         _array("uint16_t", "kExpOut", le.bufs["OUT"], 16),
+    ]
+    mterms, mforms, mkinds = _merge_tables()
+    out += [
+        "\n// The merge's complete additions (merge_addition): a term is (index << 8)\n"
+        "// | (coefficient + 128), its index a product of the pair's last round\n"
+        "// (< kMergeIn) or an input element (kMergeIn + e); a form is (first term\n"
+        "// << 8) | terms.  A kind (G1, G1 mixed, G2, G2 mixed) is its first round's\n"
+        "// first form and slots, its second round's, its output forms' first and\n"
+        "// count; a slot is two forms.\n",
+        f"constexpr int kMergeIn = {MERGE_IN};\n"
+        f"constexpr int kMergeG1Slots = {max(mkinds[1], mkinds[3], mkinds[7], mkinds[9])};  // a G1 round's most products\n"
+        f"constexpr int kMergeG2Slots = {max(mkinds[13], mkinds[15], mkinds[19], mkinds[21])};  // a G2 round's\n",
+        _array("uint16_t", "kMergeTerms", mterms, 12, "0x{:x}"),
+        _array("uint32_t", "kMergeForms", mforms, 8, "0x{:x}u"),
+        _array("uint16_t", "kMergeKinds", mkinds, 6),
         "\n}  // namespace sched\n}  // namespace bls\n",
     ]
     return "".join(out)

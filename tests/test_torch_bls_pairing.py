@@ -1,7 +1,7 @@
 """The pairing kernels' schedules (``ops/bls_schedule.py``) and their host
 twins (``csrc/bls12_381.cu`` built with g++): the Miller loop with one
 accumulator for a lane's two sides, the final exponentiation with
-cyclotomic squarings and a Kaliski inverse, and each tower formula the
+cyclotomic squarings and a safegcd inverse, and each tower formula the
 schedules use, against the port's plain versions (``ops/bls12_381.py``)
 and the host oracle (``crypto/bls.py``).
 
@@ -219,7 +219,7 @@ def test_host_tower_formula_matches_the_oracle(lane, name):
 
 
 def test_host_fp_inverse_is_the_inverse_and_maps_zero_to_zero(lane):
-    """Kaliski's inverse in the Montgomery domain against pow(x, -1, p)."""
+    """The safegcd inverse in the Montgomery domain against pow(x, -1, p)."""
     xs = [0, 1, 2, P - 1, P - 2, (P + 1) // 2] + [RNG.randrange(1, P) for _ in range(26)]
     w = _u32(ops._pack([[x] for x in xs], 1))
     out = np.zeros_like(w)

@@ -510,6 +510,94 @@ def test_bls_aggregate_check_on_card_without_fallback(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("coords", [2, 4])
+@pytest.mark.parametrize("groups, v", [(1, 1), (7, 3), (1, 129), (3, 129), (17, 8), (2, 1024)])
+def test_bls_merge_odd_sizes_and_partial_blocks_match_plain(cuda_device, coords, groups, v):
+    """The merge at sizes off the powers of two (one past a region's or a
+    block's edge), 17 groups of 8 (a partial last block of small groups),
+    a group whose live points P, Q and -(P + Q) lie apart, a group with one
+    live point, dead lanes and duplicates: bit-exact against the plain
+    version, y negated too."""
+    from go_ibft_tpu_torch.crypto import bls as hbls
+    from go_ibft_tpu_torch.ops import bls12_381 as ops
+    from go_ibft_tpu_torch.ops import bls_kernels as bk
+
+    rng = np.random.default_rng(groups * 1000 + v + coords)
+    gen, add, neg = ((hbls.G1_GEN, hbls.g1_add, hbls.g1_neg) if coords == 2
+                     else (hbls.G2_GEN, hbls.g2_add, hbls.g2_neg))
+    pack = ops.pack_g1_points if coords == 2 else ops.pack_g2_points
+    pool = [gen]
+    for _ in range(15):
+        pool.append(add(pool[-1], gen))
+    pts = pack(pool + [neg(p) for p in pool])[rng.integers(0, 32, (groups, v))]
+    live = rng.random((groups, v)) > 0.2
+    if groups > 2 and v >= 3:
+        trio = [pool[3], pool[9], neg(add(pool[3], pool[9]))]
+        live[1] = False
+        for at, pt in zip((0, v // 2, v - 1), trio):
+            pts[1, at] = pack([pt])[0]
+            live[1, at] = True
+        live[2] = False
+        live[2, v - 1] = True
+    pts, live = torch.from_numpy(np.ascontiguousarray(pts)), torch.from_numpy(live)
+    for neg_y in (False, True):
+        out, inf = bk.merge(pts.to(cuda_device), live.to(cuda_device), neg_y)
+        torch.cuda.synchronize()
+        ref, rinf = ops.merge_plain(pts, live, neg_y)
+        assert torch.equal(out.cpu(), ref) and torch.equal(inf.cpu(), rinf)
+        if groups > 2 and v >= 3:
+            assert bool(inf[1]) and not bool(inf[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coords", [2, 4])
+def test_bls_merge_sparse_groups_past_the_region_match_plain(cuda_device, coords):
+    """Groups of 1,030 points (more than a block's 512-point region) whose
+    live points are too few for a pair in a fill window: P, Q and -(P + Q)
+    at 0, 512 and 1,023, two points at 0 and 1,023, one at 1,029, none."""
+    from go_ibft_tpu_torch.crypto import bls as hbls
+    from go_ibft_tpu_torch.ops import bls12_381 as ops
+    from go_ibft_tpu_torch.ops import bls_kernels as bk
+
+    gen, add, neg = ((hbls.G1_GEN, hbls.g1_add, hbls.g1_neg) if coords == 2
+                     else (hbls.G2_GEN, hbls.g2_add, hbls.g2_neg))
+    pack = ops.pack_g1_points if coords == 2 else ops.pack_g2_points
+    p, q = add(gen, gen), add(gen, add(gen, gen))
+    cases = [{0: p, 512: q, 1023: neg(add(p, q))}, {0: p, 1023: q}, {1029: q}, {}]
+    pts = torch.zeros((len(cases), 1030, coords, 12), dtype=torch.int32)
+    live = torch.zeros((len(cases), 1030), dtype=torch.bool)
+    for g, case in enumerate(cases):
+        for at, pt in case.items():
+            pts[g, at] = torch.from_numpy(pack([pt])[0])
+            live[g, at] = True
+    out, inf = bk.merge(pts.to(cuda_device), live.to(cuda_device))
+    torch.cuda.synchronize()
+    ref, rinf = ops.merge_plain(pts, live)
+    assert torch.equal(out.cpu(), ref) and torch.equal(inf.cpu(), rinf)
+    assert inf.cpu().tolist() == [True, False, False, True]
+
+
+@pytest.mark.cuda
+def test_bls_merge_entry_refuses_a_bad_launch_and_the_wrapper_raises(cuda_device):
+    """The C entry returns the CUDA error of a launch it refuses (here a
+    coordinate count that is neither G1's nor G2's), and the launchers'
+    check raises on it: nothing runs, nothing falls back."""
+    from go_ibft_tpu_torch import _build
+    from go_ibft_tpu_torch.ops import bls_kernels as bk
+
+    lib = _build.load("bls12_381")
+    pts = torch.zeros((1, 2, 3, 12), dtype=torch.int32, device=cuda_device)
+    live = torch.ones((1, 2), dtype=torch.bool, device=cuda_device)
+    out = torch.zeros((1, 3, 12), dtype=torch.int32, device=cuda_device)
+    inf = torch.zeros(1, dtype=torch.bool, device=cuda_device)
+    rc = lib.bls_merge(pts.data_ptr(), live.data_ptr(), 1, 2, 3, 0, out.data_ptr(), inf.data_ptr(),
+                       torch.cuda.current_stream(cuda_device).cuda_stream)
+    assert rc != 0
+    with pytest.raises(RuntimeError, match="bls_merge launch failed"):
+        bk._raise_on(rc, "bls_merge")
+
+
+@pytest.mark.cuda
 def test_bls_launchers_refuse_cpu_and_malformed_tensors(cuda_device, bls_inputs):
     from go_ibft_tpu_torch.ops import bls_kernels as bk
 
