@@ -84,13 +84,32 @@ Phases, in order (any failure exits non-zero and prints no result):
    certificate record a height (WAL fsync on), then ``recover()``, a sync
    of the 8 heights in one ``verify_many`` and a relabeled certificate
    rejected.  Any fallback or verdict that differs from the oracle fails;
-11. print the ``kernels`` line (each kernel's ``ms`` is CUDA events over
+11. the multi-tenant and read planes on the card (:func:`serving_phase`),
+   every scheduler flush on the device route: (a) config #10's 8
+   committees of 4-8 validators and one of 100 drain a round's PREPARE
+   senders (an oversize PREPREPARE among them) and COMMIT seal lanes from a
+   thread each through one ``TenantScheduler``, every mask against the
+   tenant's host oracle, then config #10's 8 ``ChainRunner`` chains of 3
+   heights, concurrently and serially; (b) config #12's proof serving (a
+   finalized 100-validator chain, 24 clients): every served verdict against
+   ``HostBatchVerifier`` lane for lane, a tampered proof rejected, cold
+   against warm cache, coalesced against per-client sequential, and a live
+   4-validator chain missing no height under a proof flood; (c) config
+   #18: an HTTP cold sync (``ProofApiServer`` to ``CheckpointClient``) of a
+   16-height chain with a rotation, ``CheckpointVerifier(device=True)`` on
+   the card, in at most 4 pairing dispatches, the spliced-diff attack
+   rejected, and the million-height structural sync.  Any flush fault, shed
+   lane, host-routed flush, fallback, breaker trip, mask that differs from
+   its oracle or missed height fails the run; the digest and recovery
+   kernels are held bit-exact against their plain versions on the first
+   coalesced inputs of each shape;
+12. print the ``kernels`` line (each kernel's ``ms`` is CUDA events over
    back-to-back launches; ``device_ms_per_launch`` its time on the card per
    launch, from the profiler; ``launches`` phase 4's count (config #4's for
    the BLS kernels), ``engine_launches`` engine run A's over its 5 heights,
    ``chain_launches`` chain run F's over its 32, ``bls_launches`` one
-   config-#4 call's and ``bls_chain_launches_per_height`` phase 10's chain's),
-   then the result line.
+   config-#4 call's, ``bls_chain_launches_per_height`` phase 10's chain's
+   and ``serving_launches`` phase 11's), then the result line.
 
 ``--digest-only`` runs none of this: it times ``ops.quorum.digest_words``
 and the recovery kernel of whichever ``go_ibft_tpu_torch`` comes first on
@@ -1323,6 +1342,318 @@ def bls_phase(report: dict, ident: str, counts, dev=None, small: bool = False) -
     return {"kernels": kernels, "config4": c4, "chain_per_height": {k: v / heights for k, v in chain_counts.items()}}
 
 
+# -- phase 11: the multi-tenant and read planes on the card --------------------
+
+# Config #10's drains: rounds of every tenant at once, and the chains' heights.
+SERVING_ROUNDS = 10
+SERVING_CHAIN_HEIGHTS = 3
+# Config #12: the served chain, its chunks and clients.
+SERVING_VALIDATORS, SERVING_HEIGHTS, SERVING_CHUNK, SERVING_CLIENTS = 100, 4, 2, 24
+# Config #18's structural sync (its defaults) and the pairing dispatch bound.
+CKPT_HEIGHTS, CKPT_SPACING, CKPT_MAX_DISPATCHES = 1_000_000, 1000, 4
+
+
+def serving_phase(report: dict, ident: str, counts, holds, dev=None, small: bool = False) -> dict:
+    """Phase 11: the multi-tenant and read planes on the card.
+
+    Every scheduler here has its route set to ``"device"`` and one tapped
+    :class:`~go_ibft_tpu_torch.sched.CoalescedDispatcher` on ``dev``, which
+    keeps the first inputs of each shape it gives the two kernels (held
+    against the plain versions at the end, once no count is read any more).
+    (a) config #10: 8 committees of 4-8 validators and one of 100 drain a
+    round's PREPARE senders (one oversize PREPREPARE among them) and COMMIT
+    seal lanes from a thread each, ``SERVING_ROUNDS`` times, every mask
+    against the tenant's host oracle over Python ints; then config #10's
+    chains, concurrently and serially.  (b) config #12: a finalized
+    100-validator chain of 4 heights served in chunks of 2 through a
+    read-tier tenant; the per-lane oracle gate, a tampered proof, cold
+    against warm cache, 24 coalesced clients against 24 per-client
+    sequential ones, and the QoS bound.  (c) config #18: an HTTP cold sync
+    over ``ProofApiServer`` with ``CheckpointVerifier(device=True)``, the
+    spliced-diff attack, and the million-height structural sync.  Any
+    flush fault, shed lane, host-routed flush, fallback, breaker trip,
+    mask that differs from its oracle or missed height fails the run.
+    Times are host clock on the card ``ident`` names.  ``dev``/``small``
+    run the orchestration on the CPU at a small size (plain versions, no
+    counts checked).  Returns the phase's launch counts per kernel."""
+    import json as _json
+    import threading
+
+    import numpy as np
+
+    from go_ibft_tpu_torch.bench import serving as sv
+    from go_ibft_tpu_torch.crypto import ecdsa
+    from go_ibft_tpu_torch.crypto.backend import proposal_hash_of
+    from go_ibft_tpu_torch.lightsync import CheckpointClient, skip_path
+    from go_ibft_tpu_torch.node import ProofApiServer
+    from go_ibft_tpu_torch.sched import CoalescedDispatcher, TenantScheduler
+    from go_ibft_tpu_torch.serve import (
+        FinalityProof, ProofBuilder, ProofCache, ProofError, ProofServer, ProofVerifier, SigVerdictCache,
+        any_signer_source,
+    )
+    from go_ibft_tpu_torch.utils import metrics
+    from go_ibft_tpu_torch.verify import HostBatchVerifier
+
+    dev = torch.device("cuda") if dev is None else dev
+    card = dev.type == "cuda"
+    reset_counts, read_counts = counts
+    hold_digest, hold_recovery = holds
+    out: dict = {"gpu": ident}
+    t_phase = time.perf_counter()
+    kept: dict = {}
+
+    class Tapped(CoalescedDispatcher):
+        """The device route, keeping the first live inputs of each shape."""
+
+        def _upload(self, name, a):
+            t = super()._upload(name, a)
+            if name == "blocks":
+                self._blocks = t
+            elif name == "counts":
+                key = ("keccak256_digest", tuple(self._blocks.shape))
+                if key not in kept:
+                    kept[key] = (self._blocks.clone(), t.clone())
+            return t
+
+        def _sig_mask(self, inputs, table):
+            key = ("secp256k1_recover", tuple(inputs[3].shape))
+            if key not in kept:
+                kept[key] = tuple(x.clone() for x in inputs[:4])
+            return super()._sig_mask(inputs, table)
+
+    dispatcher = Tapped("device", torch_device=dev)
+    dispatcher.warmup(lanes=(8, 32, 128, 512))
+
+    def scheduler(**kw):
+        return TenantScheduler(route="device", dispatcher=dispatcher, **kw)
+
+    def clean(sched, what):
+        stats = sched.stats()
+        sheds = sum(t["shed_lanes"] for t in stats["tenants"].values())
+        check(stats["flush_faults"] == 0 and sheds == 0,
+              f"{what}: no flush fault and no shed lane ({stats['flush_faults']}, {sheds})")
+        check(dispatcher.routes["host"] == 0, f"{what}: every flush on the device route ({dispatcher.routes})")
+        no_host_fallback(what)
+        return stats
+
+    metrics.reset()
+    reset_counts()
+
+    # -- (a) config #10: coalesced multi-tenant drains ----------------------
+    sizes = sv.CONFIG10_SIZES + (SERVING_VALIDATORS,) if not small else (4, 6, 8)
+    tenants = sv.build_tenants(sizes)
+    oracle = {t.tid: sv.oracle_masks(t) for t in tenants}
+    rounds = SERVING_ROUNDS if not small else 1
+    sched = scheduler(window_s=0.002)
+    before = read_counts()
+    t0 = time.perf_counter()
+    with sched:
+        masks = sv.coalesced_drains(sched, tenants, rounds)
+    a_wall = time.perf_counter() - t0
+    a_counts = {k: v - before[k] for k, v in read_counts().items()}
+    stats = clean(sched, "11a drains")
+    for t in tenants:
+        for senders, seals in masks[t.tid]:
+            check(np.array_equal(senders, oracle[t.tid][0]) and np.array_equal(seals, oracle[t.tid][1]),
+                  f"11a {t.tid}: masks == the tenant's HostBatchVerifier")
+    dispatches = stats["dispatches"]
+    a = {
+        "tenants": {t.tid: {"senders": len(t.senders), "seal_lanes": len(t.lanes),
+                            "drain_p50_ms": stats["tenants"][t.tid]["drain_p50_ms"],
+                            "drain_p99_ms": stats["tenants"][t.tid]["drain_p99_ms"]} for t in tenants},
+        "rounds": rounds, "wall_s": a_wall, "dispatches": dispatches,
+        "requests_per_dispatch": stats["coalesce_ratio"], "lanes": stats["coalesced_lanes"],
+        "digest_launches_per_dispatch": a_counts["keccak256_digest"] / max(dispatches, 1),
+        "recovery_launches_per_dispatch": a_counts["secp256k1_recover"] / max(dispatches, 1),
+    }
+    if card:
+        check(a_counts["keccak256_digest"] > 0 and a_counts["secp256k1_recover"] > 0,
+              "11a: the digest and recovery kernels launched")
+    log(f"[11] a {len(tenants)} tenants ({', '.join(str(n) for n in sizes)} validators) x {rounds} rounds, "
+        f"{stats['coalesced_lanes']} lanes: every mask == its tenant's host oracle (an oversize PREPREPARE and "
+        f"one shared proposal hash among them); {dispatches} dispatches, {stats['coalesce_ratio']} requests a "
+        f"dispatch, {a['digest_launches_per_dispatch']:.2f} digest and {a['recovery_launches_per_dispatch']:.2f} "
+        f"recovery launches a dispatch, {a_wall:.3f} s ({ident})")
+    for tid, row in a["tenants"].items():
+        log(f"    {tid}: drain p50 {row['drain_p50_ms']:.3f} ms, p99 {row['drain_p99_ms']:.3f} ms")
+    chain_sizes = sv.CONFIG10_SIZES if not small else (4,)
+    chain_heights = SERVING_CHAIN_HEIGHTS if not small else 1
+    runs = {}
+    for variant, concurrent in (("concurrent", True), ("serial", False)):
+        csched = scheduler(window_s=0.001)
+        with csched:
+            runs[variant] = sv.run_chains(csched, chain_sizes, chain_heights, concurrent=concurrent, tag=variant[:2])
+        runs[variant]["stats"] = {k: v for k, v in clean(csched, f"11a {variant} chains").items() if k != "tenants"}
+        check(runs[variant]["starved"] == 0, f"11a {variant}: every chain finalized every height "
+                                             f"({runs[variant]['finalized']})")
+    a["chains"] = runs
+    log(f"[11] a {len(chain_sizes)} ChainRunner chains x {chain_heights} heights through one scheduler: "
+        f"{runs['concurrent']['blocks_per_s']:.2f} blocks/s concurrently ({runs['concurrent']['elapsed_s']:.3f} s, "
+        f"{runs['concurrent']['stats']['coalesce_ratio']} requests a dispatch) against "
+        f"{runs['serial']['blocks_per_s']:.2f} serially ({runs['serial']['elapsed_s']:.3f} s); no height missed")
+    out["a"] = a
+
+    # -- (b) config #12: proof serving --------------------------------------
+    n = SERVING_VALIDATORS if not small else 8
+    blocks, src, _keys = sv.serving_chain(n, SERVING_HEIGHTS)
+    quorum = len(blocks[0].seals)
+    reqs = sv.schedule(SERVING_HEIGHTS, SERVING_CHUNK)
+    host = HostBatchVerifier(src, recover_fn=ecdsa.recover_pure)
+    clients = SERVING_CLIENTS if not small else 3
+    b: dict = {"validators": n, "heights": SERVING_HEIGHTS, "quorum": quorum, "clients": clients}
+    rsched = scheduler(window_s=0.002)
+    with rsched:
+        builder = ProofBuilder(sv.ListSource(blocks), src)
+        recording = sv.RecordingLanes(rsched.register("c12-gate", any_signer_source, priority="read"))
+        gate = ProofVerifier(lane_verifier=recording)
+        for checkpoint, target in reqs:
+            gate.verify(builder.build(checkpoint, target), src(checkpoint + 1))
+        check(bool(recording.lanes), "11b: the oracle gate drained lanes")
+        want = np.asarray(host.verify_seal_lanes(recording.lanes, 1), dtype=bool)
+        check(np.array_equal(np.asarray(recording.masks, dtype=bool), want),
+              f"11b: {len(recording.lanes)} served lanes' verdicts == HostBatchVerifier lane for lane")
+        tampered, bad = sv.tamper(builder.build(0, SERVING_HEIGHTS), quorum)
+        try:
+            ProofVerifier(lane_verifier=recording).verify(tampered, src(1))
+        except ProofError as err:
+            b["tampered_error"] = str(err)
+        else:
+            check(False, "11b: a tampered proof is rejected")
+        phash = proposal_hash_of(tampered.entries[0].proposal)
+        check(not host.verify_seal_lanes([(phash, s) for s in bad], 1).any(),
+              "11b: the oracle rejects every tampered seal")
+        server = ProofServer(ProofBuilder(sv.ListSource(blocks), src), ProofCache(chunk_heights=SERVING_CHUNK),
+                             scheduler=rsched)
+        passes = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            for checkpoint, target in reqs:
+                server.get_proof(checkpoint, target)
+            passes.append(time.perf_counter() - t0)
+        b["cold_proofs_per_s"], b["warm_proofs_per_s"] = (len(reqs) / s for s in passes)
+        proof = server.get_proof(0, SERVING_HEIGHTS)
+        errors: list = []
+
+        def client():
+            try:
+                server.verify_proof(proof, src(1))
+            except BaseException as e:  # noqa: BLE001 - surfaced below
+                errors.append(e)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client) for _ in range(clients)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        coalesced_s = time.perf_counter() - t0
+        check(not errors, f"11b: every coalesced client verified ({errors[:1]})")
+        serve_stats = server.stats()
+        t0 = time.perf_counter()
+        for _ in range(clients):
+            ProofVerifier(lane_verifier=sv.DispatcherLanes("device", dev),
+                          sig_cache=SigVerdictCache()).verify(proof, src(1))
+        per_client_s = time.perf_counter() - t0
+        b.update(coalesced_proofs_per_s=clients / coalesced_s, per_client_proofs_per_s=clients / per_client_s,
+                 sig_cache=serve_stats["verify"]["sig_cache"], cache=serve_stats["cache"])
+        qos = sv.proof_flood_qos(rsched, blocks[:SERVING_HEIGHTS], src)
+        server.close()
+    check(qos["missed"] == 0, f"11b: the live chain missed no height under the proof flood ({qos})")
+    b["qos"] = qos
+    b["stats"] = {k: v for k, v in clean(rsched, "11b serving").items() if k != "tenants"}
+    log(f"[11] b config #12, {n} validators x {SERVING_HEIGHTS} heights, chunks of {SERVING_CHUNK}: every "
+        f"served verdict == HostBatchVerifier, a tampered proof rejected; cold {b['cold_proofs_per_s']:.2f} "
+        f"against warm {b['warm_proofs_per_s']:.2f} proofs/s; {clients} clients coalesced "
+        f"{b['coalesced_proofs_per_s']:.2f} against per-client sequential {b['per_client_proofs_per_s']:.2f} "
+        f"proofs/s; QoS: a 4-validator chain finalized {qos['finalized']} beside {qos['flood_proofs']} flood "
+        f"proofs; {b['stats']['dispatches']} dispatches ({ident})")
+    out["b"] = b
+    ab_counts = read_counts()
+
+    # -- (c) config #18: checkpoint-anchored cold sync ------------------------
+    c: dict = {}
+    blocks18, validators, registry, ckpt, set_a, set_b = sv.checkpoint_chain()
+    csched = scheduler(window_s=0.002)
+    with csched:
+        source = sv.ListSource(blocks18)
+        server = ProofServer(ProofBuilder(source, validators), ProofCache(chunk_heights=4), scheduler=csched)
+        api = ProofApiServer(server, source.latest_height, checkpoints_fn=ckpt.wire_payload)
+        api.start()
+        try:
+            client = CheckpointClient(api.url, registry, device=True, torch_device=dev)
+            t0 = time.perf_counter()
+            rep = client.cold_sync(set_a)
+            c["real_sync_s"] = time.perf_counter() - t0
+            check(rep.anchor_height == len(blocks18) and rep.bridge_bytes > 0 and rep.powers == set_b,
+                  f"11c: the cold sync anchors at the head across the rotation ({rep})")
+            check(rep.pairing_dispatches <= CKPT_MAX_DISPATCHES,
+                  f"11c: at most {CKPT_MAX_DISPATCHES} batched pairing dispatches ({rep.pairing_dispatches})")
+            payload, _nb = client.fetch_proof(8, len(blocks18))
+            payload["proof"]["diffs"].append({"height": len(blocks18) - 1, "added": {"ab" * 20: 1000},
+                                              "removed": []})
+            try:
+                ProofVerifier(require_commitments=True).verify(
+                    FinalityProof.from_wire(_json.loads(_json.dumps(payload["proof"]))), validators(8))
+            except ProofError as err:
+                check("next-set root" in str(err), f"11c: the splice dies at the commitment check ({err})")
+                c["splice_error"] = str(err)
+            else:
+                check(False, "11c: the spliced-diff attack is rejected")
+        finally:
+            api.stop()
+            server.close()
+    clean(csched, "11c checkpoint sync")
+    c["real"] = {"anchor_height": rep.anchor_height, "total_bytes": rep.total_bytes,
+                 "bridge_bytes": rep.bridge_bytes, "pairing_dispatches": rep.pairing_dispatches}
+    heights = CKPT_HEIGHTS if not small else 8 * CKPT_SPACING
+    t0 = time.perf_counter()
+    ck2, registry2, powers2, heights = sv.structural_checkpointer(heights, CKPT_SPACING)
+    c["structural_build_s"] = time.perf_counter() - t0
+    api2 = ProofApiServer(None, lambda: heights, checkpoints_fn=ck2.wire_payload)
+    api2.start()
+    try:
+        t0 = time.perf_counter()
+        rep2 = CheckpointClient(api2.url, registry2, device=True, torch_device=dev).cold_sync(powers2)
+        c["structural_sync_s"] = time.perf_counter() - t0
+    finally:
+        api2.stop()
+    epochs = heights // CKPT_SPACING
+    check(rep2.anchor_height == heights and rep2.tail_bytes == 0 and rep2.checkpoint_lanes == len(skip_path(epochs)),
+          f"11c: the structural sync anchors at {heights} on {len(skip_path(epochs))} records ({rep2})")
+    check(rep2.pairing_dispatches <= CKPT_MAX_DISPATCHES,
+          f"11c structural: at most {CKPT_MAX_DISPATCHES} pairing dispatches ({rep2.pairing_dispatches})")
+    c["structural"] = {"heights": heights, "spacing": CKPT_SPACING, "records": rep2.checkpoint_lanes,
+                       "checkpoint_bytes": rep2.total_bytes, "pairing_dispatches": rep2.pairing_dispatches}
+    launches = read_counts()
+    c_counts = {k: v - ab_counts[k] for k, v in launches.items()}
+    if card:
+        for name in ("bls_merge", "bls_miller", "bls_final_exp"):
+            check(c_counts[name] > 0, f"11c: {name} launched")
+    out["c"] = c
+    log(f"[11] c config #18: a {len(blocks18)}-height chain (rotation at 10, a checkpoint every 4, BLS quorum "
+        f"seals) cold-synced over HTTP in {c['real_sync_s']:.3f} s, {rep.pairing_dispatches} pairing "
+        f"dispatch(es), {rep.total_bytes} B; the splice died at the commitment check; {heights:,} heights at "
+        f"spacing {CKPT_SPACING}: {rep2.checkpoint_lanes} records, {rep2.total_bytes} B, "
+        f"{rep2.pairing_dispatches} dispatch(es), built in {c['structural_build_s']:.2f} s (lazy BLS signing on "
+        f"the host), synced in {c['structural_sync_s']:.3f} s; launches {c_counts}")
+
+    # -- the kernels at the phase's own inputs -------------------------------
+    for (name, shape), ins in sorted(kept.items(), key=str):
+        if name == "keccak256_digest":
+            hold_digest(*ins, f"the coalesced dispatch at {shape}")
+        else:
+            hold_recovery(ins, f"secp256k1_recover kernel == plain on the coalesced {shape[0]} lanes")
+    out["held_shapes"] = sorted(f"{name} {shape}" for name, shape in kept)
+    for name in ("keccak256_digest", "secp256k1_recover"):
+        check(any(k == name for k, _ in kept), f"11: the coalesced {name} inputs held")
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[11] the kernels bit-exact against plain at the phase's inputs: {out['held_shapes']}; "
+        f"phase launches {launches}; phase 11 took {out['phase_s']:.1f} s ({ident})")
+    report["serving"] = out
+    return launches
+
+
 def digest_only() -> int:
     """Time ``ops.quorum.digest_words`` and the recovery kernel of the
     ``go_ibft_tpu_torch`` first on the import path.  To compare checkouts,
@@ -1892,7 +2223,10 @@ def main() -> int:
     # -- 10. BLS12-381 aggregate verification on the card -------------
     bls = bls_phase(report, ident, (reset_counts, read_counts))
 
-    # -- 11. the kernels line and the result ---------------------------
+    # -- 11. the multi-tenant and read planes on the card --------------
+    serving_launches = serving_phase(report, ident, (reset_counts, read_counts), (hold_digest, hold_recovery))
+
+    # -- 12. the kernels line and the result ---------------------------
     main = {"keccak_f1600": timing["keccak_f1600"][256],  # PR 1's main-path size
             "keccak256_digest": timing["keccak256_digest"]["100v"],
             "secp256k1_recover": timing["secp256k1_recover"]["100v"]}
@@ -1917,6 +2251,7 @@ def main() -> int:
         "chain_launches": chain_launches[name],
         "bls_launches": bls["config4"][name],
         "bls_chain_launches_per_height": bls["chain_per_height"][name],
+        "serving_launches": serving_launches[name],
         "max_abs_err": err[name],
         "ms": main[name]["ms"],
         "device_ms_per_launch": main[name]["device_ms_per_launch"],
@@ -1928,7 +2263,8 @@ def main() -> int:
     for entry in bls["kernels"]:
         entry.update(engine_launches=engine_launches[entry["name"]], chain_launches=chain_launches[entry["name"]],
                      bls_launches=entry["launches"],
-                     bls_chain_launches_per_height=entry.pop("chain_launches_per_height"))
+                     bls_chain_launches_per_height=entry.pop("chain_launches_per_height"),
+                     serving_launches=serving_launches[entry["name"]])
         kernels.append(entry)
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start

@@ -4,16 +4,25 @@ BLS aggregate-COMMIT workload (config #4)."""
 
 from .bls_workload import BLSRoundWorkload, build_bls_round_workload
 from .lanes import RecoveryLanes, build_recovery_lanes, build_sparse_scalar_lanes
-from .workload import RoundWorkload, SignedRound, build_round_workload, build_signed_round
+from .workload import (
+    RoundWorkload,
+    SealLaneWorkload,
+    SignedRound,
+    build_round_workload,
+    build_seal_lane_workload,
+    build_signed_round,
+)
 
 __all__ = [
     "BLSRoundWorkload",
     "RecoveryLanes",
     "RoundWorkload",
+    "SealLaneWorkload",
     "SignedRound",
     "build_bls_round_workload",
     "build_recovery_lanes",
     "build_round_workload",
+    "build_seal_lane_workload",
     "build_signed_round",
     "build_sparse_scalar_lanes",
 ]

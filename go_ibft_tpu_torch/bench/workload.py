@@ -169,3 +169,68 @@ def build_round_workload(
     return build_signed_round(
         n_validators, height=height, corrupt_frac=corrupt_frac, seed=seed
     ).pack(pad_lanes)
+
+
+@dataclass
+class SealLaneWorkload:
+    """A multi-height committed-seal lane set (the block-sync drain shape).
+
+    ``lanes`` are ``(proposal_hash, seal)`` pairs spanning several heights
+    (each height signs its own hash — the per-lane-hash shape
+    ``verify_seal_lanes`` drains); ``expected_mask`` is the sequential
+    oracle's verdict per lane.  Distinct signatures are bounded by
+    ``n_validators x heights`` and TILED out to ``n_lanes`` — duplicated
+    lanes cost the verifier exactly the same ladder work as distinct ones
+    (no dedup anywhere in the drain), so throughput measurements stay
+    honest while host signing stays off the critical path.
+    """
+
+    lanes: list  # [(proposal_hash, CommittedSeal), ...]
+    height: int  # representative height for the (static) validator table
+    validators: object  # ValidatorSource (height -> {address: power})
+    expected_mask: np.ndarray
+
+
+def build_seal_lane_workload(
+    n_lanes: int,
+    *,
+    n_validators: int = 100,
+    heights: int = 4,
+    corrupt_frac: float = 0.0,
+    seed: int = 0,
+) -> SealLaneWorkload:
+    """Build ``n_lanes`` seal lanes across ``heights`` proposal hashes."""
+    keys = _keys(n_validators, seed)
+    powers = {k.address: 1 for k in keys}
+    src = ECDSABackend.static_validators(powers)
+    backends = [ECDSABackend(k, src) for k in keys]
+    distinct: list = []
+    ok: list = []
+    rng = np.random.default_rng(seed)
+    for h in range(1, heights + 1):
+        proposal = Proposal(raw_proposal=b"mesh bench block %d" % h, round=0)
+        phash = proposal_hash_of(proposal)
+        view = View(height=h, round=0)
+        for b in backends:
+            seal = extract_committed_seal(b.build_commit_message(phash, view))
+            good = True
+            if corrupt_frac and rng.random() < corrupt_frac:
+                sig = bytearray(seal.signature)
+                sig[5] ^= 0xFF
+                seal = CommittedSeal(signer=seal.signer, signature=bytes(sig))
+                good = False
+            distinct.append((phash, seal))
+            ok.append(good)
+            if len(distinct) >= n_lanes:
+                break
+        if len(distinct) >= n_lanes:
+            break
+    reps = (n_lanes + len(distinct) - 1) // len(distinct)
+    lanes = (distinct * reps)[:n_lanes]
+    expected = (np.asarray(ok, dtype=bool).tolist() * reps)[:n_lanes]
+    return SealLaneWorkload(
+        lanes=lanes,
+        height=1,
+        validators=src,
+        expected_mask=np.asarray(expected, dtype=bool),
+    )

@@ -38,10 +38,9 @@ a fault of the overlap worker's drain ends :meth:`ChainRunner.run` with
 that fault instead of re-verifying the batch on the host; off the card the
 JAX behaviour stays; so does a certifier's fault on the card, which ends
 :meth:`ChainRunner.run` instead of falling back to a per-seal finalize
-record.  And the hooks whose modules the port does not have yet raise
-:class:`~go_ibft_tpu_torch.chain.wal.NotPortedError` naming the slice they
-wait for: ``checkpointer=`` (serving) and :meth:`ChainRunner.warm_start`
-(boot).
+record.  And :meth:`ChainRunner.warm_start`, whose module the port does
+not have yet, raises :class:`~go_ibft_tpu_torch.chain.wal.NotPortedError`
+naming the slice it waits for (boot).
 """
 
 from __future__ import annotations
@@ -59,7 +58,7 @@ from ..obs import trace
 from ..utils import metrics
 from ..verify.batch import on_card
 from .sync import SyncClient, SyncError
-from .wal import CHECKPOINT_NOT_PORTED, FinalizedBlock, NotPortedError, WriteAheadLog
+from .wal import FinalizedBlock, NotPortedError, WriteAheadLog
 
 __all__ = ["ChainRunner", "HANDOFF_MS_KEY", "HEIGHT_MS_KEY", "OVERLAP_LANES_KEY"]
 
@@ -107,9 +106,14 @@ class ChainRunner:
         # quorum formed).  Peers then serve certificate blocks and the
         # sync client re-verifies each height with ONE pairing.
         self.certifier = certifier
-        # Epoch checkpoints wait for the serving slice.
-        if checkpointer is not None:
-            raise NotPortedError(CHECKPOINT_NOT_PORTED)
+        # Epoch checkpointing: a checkpointer (a
+        # :class:`~go_ibft_tpu_torch.lightsync.checkpoint.Checkpointer`)
+        # builds the quorum-sealed skip-chain record at every epoch
+        # boundary the runner finalizes, persists it through the WAL
+        # (``append_checkpoint``), and serves the ``GET /checkpoints``
+        # payload through the proof API.  ``recover()`` restores the
+        # durable records so a restarted node never re-signs history.
+        self.checkpointer = checkpointer
         # Speculative verification plane: attaching a
         # :class:`~go_ibft_tpu_torch.verify.speculate.SpeculativeVerifier`
         # here wires it into the engine — ingress COMMIT seals verify
@@ -184,8 +188,9 @@ class ChainRunner:
     def validators_for_height(self, height: int) -> dict:
         """Per-height validator-set snapshot (the proof-serving seam).
 
-        The serve layer (the JAX package's ``serve``) builds finality proofs
-        from a ``SyncSource`` plus this snapshot source, so it mounts a
+        The serve layer (:mod:`go_ibft_tpu_torch.serve`) builds finality
+        proofs from a ``SyncSource`` plus this snapshot source — a
+        ``ProofBuilder(runner, runner.validators_for_height)`` mounts a
         running node unchanged, rotation-aware: the engine backend's
         ``get_voting_powers`` is already the height-keyed seam every
         verifier uses."""
@@ -258,6 +263,17 @@ class ChainRunner:
         self._append_block(
             FinalizedBlock(height, proposal, stored_seals, cert=cert)
         )
+        if self.checkpointer is not None:
+            from ..crypto.backend import proposal_hash_of
+
+            # Epoch boundary: build the skip-chain record AFTER the
+            # finalize record is durable (a checkpoint must never outlive
+            # a crash that lost the height it commits to).
+            rec = self.checkpointer.on_finalize(
+                height, proposal_hash_of(proposal)
+            )
+            if rec is not None and self.wal is not None:
+                self.wal.append_checkpoint(rec)
 
     def _on_lock(
         self,
@@ -287,6 +303,8 @@ class ChainRunner:
         for block in state.blocks:
             self.engine.backend.insert_proposal(block.proposal, block.seals)
             self._append_block(block)
+        if self.checkpointer is not None and state.checkpoints:
+            self.checkpointer.restore(state.checkpoints)
         self.height = state.next_height
         self._restore = None
         self._recovered = True
@@ -631,6 +649,16 @@ class ChainRunner:
                     block.height, block.proposal, block.seals, cert=block.cert
                 )
             self._append_block(block)
+            if self.checkpointer is not None:
+                from ..crypto.backend import proposal_hash_of
+
+                # A synced epoch boundary checkpoints too — catch-up must
+                # not leave holes in the skip chain.
+                rec = self.checkpointer.on_finalize(
+                    block.height, proposal_hash_of(block.proposal)
+                )
+                if rec is not None and self.wal is not None:
+                    self.wal.append_checkpoint(rec)
         if blocks:
             self.synced_heights += len(blocks)
             self.height = blocks[-1].height + 1

@@ -31,13 +31,10 @@ refuses interior corruption — a damaged middle record means the file is
 not the log this code wrote, and silently skipping it could resurrect an
 equivocation.
 
-One record form of the JAX package is not ported yet, and raises
-:class:`NotPortedError` naming the slice it waits for, on append and on
-replay: an epoch ``checkpoint`` record (it needs ``lightsync``, the
-serving slice).  Replay never takes such a record for a torn tail: it
-raises, and the file is left as it is.  Finalize records carrying an
-aggregate quorum certificate (:mod:`go_ibft_tpu_torch.crypto.quorum_cert`)
-are written and replayed as the JAX package does.
+Finalize records carrying an aggregate quorum certificate
+(:mod:`go_ibft_tpu_torch.crypto.quorum_cert`) and epoch ``checkpoint``
+records (:mod:`go_ibft_tpu_torch.lightsync.checkpoint`) are written and
+replayed as the JAX package does.
 """
 
 from __future__ import annotations
@@ -72,14 +69,8 @@ class WalCorruptionError(ValueError):
 
 
 class NotPortedError(NotImplementedError):
-    """A chain hook whose module the port does not have yet; the message
-    names the module and the slice that brings it."""
-
-
-CHECKPOINT_NOT_PORTED = (
-    "checkpoint records are not ported: they need lightsync, which comes "
-    "with the serving slice"
-)
+    """A hook whose module the port does not have yet; the message names
+    the module and the slice that brings it."""
 
 
 @dataclass
@@ -115,11 +106,18 @@ class WalLock:
 
 @dataclass
 class WalState:
-    """Replay result: the durable chain plus the live lock (if any)."""
+    """Replay result: the durable chain plus the live lock (if any).
+
+    ``checkpoints`` are the epoch checkpoint records
+    (:class:`~go_ibft_tpu_torch.lightsync.checkpoint.CheckpointRecord`) the
+    node built at epoch boundaries — replayed so a restarted node serves
+    its skip chain without re-signing history.
+    """
 
     blocks: List[FinalizedBlock] = field(default_factory=list)
     lock: Optional[WalLock] = None
     dropped_tail: bool = False
+    checkpoints: List[object] = field(default_factory=list)
 
     @property
     def next_height(self) -> int:
@@ -231,9 +229,19 @@ class WriteAheadLog:
         self._append(record, fsync=self._fsync_locks)
 
     def append_checkpoint(self, record) -> None:
-        """An epoch checkpoint record: not ported (raises
-        :class:`NotPortedError`, nothing is written)."""
-        raise NotPortedError(CHECKPOINT_NOT_PORTED)
+        """Durably record one epoch checkpoint (fsync — the record chains
+        into every later epoch's skip links, so losing it would orphan the
+        structure on restart).  ``record`` is a
+        :class:`~go_ibft_tpu_torch.lightsync.checkpoint.CheckpointRecord`."""
+        self._append(
+            {
+                "kind": "checkpoint",
+                "epoch": record.epoch,
+                "height": record.height,
+                "rec": record.encode().hex(),
+            },
+            fsync=True,
+        )
 
     def close(self) -> None:
         with self._lock:
@@ -280,7 +288,11 @@ class WriteAheadLog:
                 ),
             )
         if kind == "checkpoint":
-            raise NotPortedError(CHECKPOINT_NOT_PORTED)
+            # Lazy import, like the certificate codec: checkpoint-less
+            # WALs never pay for the lightsync stack.
+            from ..lightsync.checkpoint import CheckpointRecord
+
+            return CheckpointRecord.decode(bytes.fromhex(record["rec"]))
         raise ValueError(f"unknown WAL record kind {kind!r}")
 
     def _truncate_tail(self, data: bytes, torn: bytes) -> None:
@@ -328,8 +340,6 @@ class WriteAheadLog:
         for i, raw in enumerate(raw_lines):
             try:
                 parsed = self._parse(json.loads(raw))
-            except NotPortedError:
-                raise  # a record of the JAX package's, not a torn tail
             except Exception as err:  # noqa: BLE001 - classified below
                 if i == len(raw_lines) - 1:
                     # Torn tail: the crash interrupted the final append;
@@ -349,8 +359,12 @@ class WriteAheadLog:
                 if state.blocks and parsed.height <= state.blocks[-1].height:
                     continue  # duplicate/stale re-append: first write wins
                 state.blocks.append(parsed)
-            else:
+            elif isinstance(parsed, WalLock):
                 latest_lock = parsed
+            else:  # checkpoint record (first write wins, like finalizes)
+                if any(c.epoch == parsed.epoch for c in state.checkpoints):
+                    continue
+                state.checkpoints.append(parsed)
         if latest_lock is not None and (
             not state.blocks or latest_lock.height > state.blocks[-1].height
         ):

@@ -1,8 +1,9 @@
 """A complete, real-cryptography embedder backend.
 
-A copy of ``go_ibft_tpu.crypto.backend`` without the next-set commitment
-option (the port has no ``lightsync`` yet).  Constructing a backend
-registers the native C++ fast paths once (:func:`_try_native_fast_paths`).
+A copy of ``go_ibft_tpu.crypto.backend``, the next-set commitment option
+(``commit_next_set``, through :mod:`go_ibft_tpu_torch.lightsync.commitment`)
+included.  Constructing a backend registers the native C++ fast paths once
+(:func:`_try_native_fast_paths`).
 
 The reference leaves all of this to the embedder (go-ibft
 core/backend.go:12-85); this module is the standalone framework's built-in
@@ -91,6 +92,8 @@ class ECDSABackend:
         key: ec.PrivateKey,
         validators_for_height: Callable[[int], Mapping[bytes, int]],
         build_proposal_fn: Optional[Callable[[View], bytes]] = None,
+        *,
+        commit_next_set: bool = False,
     ):
         _try_native_fast_paths()
         self.key = key
@@ -99,6 +102,13 @@ class ECDSABackend:
         self._build_proposal_fn = build_proposal_fn or (
             lambda view: b"block %d" % view.height
         )
+        # When on, every built proposal carries a next-set commitment
+        # suffix over validators_for_height(height + 1), and
+        # is_valid_proposal requires the suffix frame to be present.  The
+        # engine seam passes only raw bytes (no height), so this side
+        # checks presence; the exact-root check happens where the height
+        # is known — serve.proof.walk_sets(require_commitments=True).
+        self.commit_next_set = commit_next_set
         self.inserted: list[tuple[Proposal, list[CommittedSeal]]] = []
 
     @staticmethod
@@ -181,7 +191,13 @@ class ECDSABackend:
     # -- Verifier (reference core/backend.go:37-56) ---------------------
 
     def is_valid_proposal(self, raw_proposal: bytes) -> bool:
-        return bool(raw_proposal)
+        if not raw_proposal:
+            return False
+        if self.commit_next_set:
+            from ..lightsync.commitment import extract_next_set
+
+            return extract_next_set(raw_proposal) is not None
+        return True
 
     def is_valid_validator(self, msg: IbftMessage) -> bool:
         if msg.view is None or len(msg.signature) != SIG_BYTES:
@@ -245,7 +261,12 @@ class ECDSABackend:
         pass
 
     def build_proposal(self, view: View) -> bytes:
-        return self._build_proposal_fn(view)
+        raw = self._build_proposal_fn(view)
+        if self.commit_next_set:
+            from ..lightsync.commitment import embed_next_set, set_root
+
+            raw = embed_next_set(raw, set_root(self._validators(view.height + 1)))
+        return raw
 
     def insert_proposal(
         self, proposal: Proposal, committed_seals: Sequence[CommittedSeal]

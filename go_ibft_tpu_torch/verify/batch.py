@@ -627,6 +627,44 @@ def pack_sender_lanes(msgs: Sequence[IbftMessage], *, cache=None, hits=None, pad
     return _SenderLanes(blocks, counts, r, s, v, senders, live, big, big_zw)
 
 
+def pack_sender_digest_rows(
+    msgs: Optional[Sequence[IbftMessage]] = None,
+    *,
+    cache=None,
+    hits=None,
+    pad_lanes: int = 0,
+    lanes: Optional[_SenderLanes] = None,
+    upload: Callable[[str, np.ndarray], torch.Tensor],
+) -> Tuple[torch.Tensor, ...]:
+    """The device sender route's one pack sequence: cache-hit reuse and
+    the pack (:func:`pack_sender_lanes`), one launch of the digest kernel
+    (``ops/quorum.py::digest_words``) on the device, and the host digests
+    of oversize payloads written over their rows.  Returns the device
+    tensors ``(zw, r, s, v, claimed, live)``.
+
+    ONE implementation serves both the single-tenant plane
+    (:meth:`DeviceBatchVerifier._upload`) and the multi-tenant coalesced
+    dispatcher (``sched/dispatch.py``), so a fix to the oversize or cache
+    path can never apply to one and silently miss the other.  ``cache`` is
+    the store target for fresh packs (a :class:`PackCache`, or the
+    scheduler's per-tenant routing shim); ``hits`` supplies pre-routed
+    lookups.  ``lanes`` passes a pack made ahead (the chunk pipeline packs
+    the next chunk while the device runs this one), and then ``msgs``,
+    ``cache``, ``hits`` and ``pad_lanes`` are unused.  ``upload(name,
+    array)`` moves each host array to the device.
+    """
+    if lanes is None:
+        lanes = pack_sender_lanes(msgs, cache=cache, hits=hits, pad_lanes=pad_lanes)
+    zw = quorum.digest_words(upload("blocks", lanes.blocks), upload("counts", lanes.counts))
+    if lanes.big:
+        idx = torch.as_tensor(lanes.big, device=zw.device)
+        zw[idx] = upload("big_zw", lanes.big_zw)
+    return (
+        zw, upload("r", lanes.r), upload("s", lanes.s), upload("v", lanes.v),
+        upload("claimed", lanes.claimed), upload("live", lanes.live),
+    )
+
+
 def _threshold(thr: int) -> Tuple[int, int]:
     thr = max(thr, 0)
     return thr & 0xFFFF, thr >> 16
@@ -911,21 +949,18 @@ class DeviceBatchVerifier:
 
     def _upload(self, slot: int, lanes, tag: str = "") -> Tuple[torch.Tensor, ...]:
         """A packed host chunk -> device ``(zw, r, s, v, claimed, live)``;
-        an envelope chunk's digests come from one launch of the digest
-        kernel (host digests of oversize lanes written over its rows).
-        Chunks uploaded in one slot take distinct ``tag`` s, so that no
-        pinned buffer is refilled while its copy is in flight."""
+        an envelope chunk goes through :func:`pack_sender_digest_rows`
+        (one launch of the digest kernel, host digests of oversize lanes
+        written over its rows).  Chunks uploaded in one slot take distinct
+        ``tag`` s, so that no pinned buffer is refilled while its copy is in
+        flight."""
 
         def up(slot, name, a):
             return self._staging.upload(slot, tag + name, a)
 
         if isinstance(lanes, _SenderLanes):
-            zw = quorum.digest_words(up(slot, "blocks", lanes.blocks), up(slot, "counts", lanes.counts))
-            if lanes.big:
-                idx = torch.as_tensor(lanes.big, device=self.device)
-                zw[idx] = up(slot, "big_zw", lanes.big_zw)
-        else:
-            zw = up(slot, "zw", lanes.zw)
+            return pack_sender_digest_rows(lanes=lanes, upload=lambda name, a: up(slot, name, a))
+        zw = up(slot, "zw", lanes.zw)
         return (
             zw, up(slot, "r", lanes.r), up(slot, "s", lanes.s), up(slot, "v", lanes.v),
             up(slot, "claimed", lanes.claimed), up(slot, "live", lanes.live),

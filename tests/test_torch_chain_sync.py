@@ -9,8 +9,9 @@ masks, the blocks a catch-up returns, its drain count and every
 harness): a stranded node catches up through one batched drain, and a node
 killed right after its WAL lock append restarts through ``recover()`` with
 the lock and rejoins the same chain as in the JAX package.  The certificate
-hooks take the working route; the hooks whose modules the port does not
-have yet raise ``NotPortedError`` with the slice they wait for.
+and checkpoint hooks take the working route; ``warm_start``, whose module
+the port does not have yet, raises ``NotPortedError`` with the slice it
+waits for.
 """
 
 import asyncio
@@ -199,22 +200,13 @@ def test_validator_set_change_mid_range_matches_jax(rotated_quorum_fails):
 # -- the hooks that wait for their slices ----------------------------------------
 
 
-class _Stub:
-    """Stands in for a checkpoint record of the JAX package."""
-
-    epoch, height = 1, 8
-
-    def encode(self):
-        return b"\x01\x02"
-
-
 def test_certificate_hooks_raise_not_ported(tmp_path):
     """The certificate hooks this test pinned as not ported while the BLS
     slice was missing now take the working route, as in the JAX package: a
     ``SyncClient`` takes a ``cert_verifier``, a WAL writes a certificate
     record byte for byte as the JAX package's does and each package
     replays the other's file, and a ``ChainRunner`` takes a ``certifier``.
-    (The checkpoint and ``warm_start`` hooks still raise: below.)"""
+    (The checkpoint hooks work too since the serving slice: below.)"""
     import importlib
 
     files, certs = {}, {}
@@ -254,19 +246,36 @@ def test_certificate_hooks_raise_not_ported(tmp_path):
 
 
 def test_checkpoint_and_boot_hooks_raise_not_ported(tmp_path):
+    """The checkpoint hooks this test pinned as not ported while lightsync
+    was missing now take the working route, as in the JAX package: a WAL
+    writes the same epoch checkpoint records byte for byte as the JAX
+    package's, each package replays the other's file (first write wins),
+    and a ``ChainRunner`` takes a ``checkpointer``.  ``warm_start`` still
+    raises ``NotPortedError`` naming the boot slice."""
     from go_ibft_tpu_torch.chain import NotPortedError
 
     m = pkg(PACKAGES[0])
-    wal = m.chain.WriteAheadLog(str(tmp_path / "port.jsonl"))
-    with pytest.raises(NotPortedError, match="lightsync.*serving slice"):
-        wal.append_checkpoint(_Stub())
-    jax = pkg(PACKAGES[1])
-    path = str(tmp_path / "jax.jsonl")
-    jwal = jax.chain.WriteAheadLog(path)
-    jwal.append_checkpoint(_Stub())
-    jwal.close()
-    with pytest.raises(NotPortedError, match="lightsync"):
-        m.chain.WriteAheadLog(path).replay()
+    powers = {bytes([i]) * 20: 1 for i in range(1, 5)}
+    files = {}
+    for name in PACKAGES:
+        ls = __import__(name + ".lightsync", fromlist=["Checkpointer"])
+        ck = ls.Checkpointer(2, lambda _h: powers)
+        wal = pkg(name).chain.WriteAheadLog(str(tmp_path / f"{name}.jsonl"))
+        for h in range(1, 7):
+            rec = ck.on_finalize(h, bytes([h]) * 32)
+            if rec is not None:
+                wal.append_checkpoint(rec)
+                wal.append_checkpoint(rec)  # re-append: first write wins
+        wal.close()
+        with open(wal.path, "rb") as fh:
+            files[name] = fh.read()
+    assert files[PACKAGES[0]] == files[PACKAGES[1]]
+    for reader, writer in (PACKAGES, PACKAGES[::-1]):
+        state = pkg(reader).chain.WriteAheadLog(str(tmp_path / f"{writer}.jsonl")).replay()
+        assert [r.epoch for r in state.checkpoints] == [1, 2, 3]
+        assert [r.encode().hex() for r in state.checkpoints] == [
+            json.loads(line)["rec"] for line in files[writer].splitlines()[::2]
+        ]
 
     keys = [m.crypto.PrivateKey.from_seed(b"torch-hooks-%d" % i) for i in range(4)]
     src = m.cb.ECDSABackend.static_validators({k.address: 1 for k in keys})
@@ -274,11 +283,13 @@ def test_checkpoint_and_boot_hooks_raise_not_ported(tmp_path):
     def engine():
         return m.core.IBFT(None, m.cb.ECDSABackend(keys[0], src), None)
 
+    wal = m.chain.WriteAheadLog(str(tmp_path / "port-hooks.jsonl"))
     runner = m.chain.ChainRunner(engine(), wal)
     with pytest.raises(NotPortedError, match="boot.warmstart.*boot slice"):
         runner.warm_start()
-    with pytest.raises(NotPortedError, match="serving slice"):
-        m.chain.ChainRunner(engine(), wal, checkpointer=object())
+    checkpointer = object()
+    assert m.chain.ChainRunner(engine(), wal, checkpointer=checkpointer).checkpointer is checkpointer
+    wal.close()
 
 
 # -- clusters (mirror tests/test_chain_sync.py) ---------------------------------

@@ -316,10 +316,21 @@ BLS_SLICE_MODULES = (
 )
 
 
+# The serving slice's modules: the multi-tenant scheduler, proof serving,
+# the light client and the proof API.
+SERVING_SLICE_MODULES = (
+    "go_ibft_tpu_torch.sched", "go_ibft_tpu_torch.sched.dispatch", "go_ibft_tpu_torch.sched.scheduler",
+    "go_ibft_tpu_torch.serve", "go_ibft_tpu_torch.serve.proof", "go_ibft_tpu_torch.serve.cache",
+    "go_ibft_tpu_torch.serve.server", "go_ibft_tpu_torch.lightsync", "go_ibft_tpu_torch.lightsync.commitment",
+    "go_ibft_tpu_torch.lightsync.checkpoint", "go_ibft_tpu_torch.lightsync.client", "go_ibft_tpu_torch.node",
+    "go_ibft_tpu_torch.node.proof_api", "go_ibft_tpu_torch.bench.serving",
+)
+
+
 def test_port_imports_nothing_of_jax():
     """A fresh interpreter where ``import jax`` fails imports every module
-    of ``go_ibft_tpu_torch``, the chain and BLS slices' among them; no
-    ``go_ibft_tpu`` module gets loaded."""
+    of ``go_ibft_tpu_torch``, the chain, BLS and serving slices' among
+    them; no ``go_ibft_tpu`` module gets loaded."""
     root = Path(__file__).resolve().parent.parent
     code = """
 import importlib, pkgutil, sys
@@ -339,6 +350,7 @@ print(" ".join(names))
     assert len(names) >= 50
     assert set(CHAIN_SLICE_MODULES) <= names, set(CHAIN_SLICE_MODULES) - names
     assert set(BLS_SLICE_MODULES) <= names, set(BLS_SLICE_MODULES) - names
+    assert set(SERVING_SLICE_MODULES) <= names, set(SERVING_SLICE_MODULES) - names
 
 
 def test_every_bound_entry_point_is_in_its_source():
@@ -650,3 +662,150 @@ def test_three_threads_through_one_verifier_on_card(cuda_device):
     before = ecrecover.recover.launches
     assert concurrent_drains(card, rounds) == 300
     assert ecrecover.recover.launches - before == 300  # one recovery launch a call
+
+
+def _sched_drains(route_device):
+    """Three tenants (one flooding corrupt seals, two sharing a proposal
+    hash) drain concurrently through one scheduler on ``route_device``'s
+    device route: every verdict, and the dispatcher's route counts."""
+    import threading
+
+    from go_ibft_tpu_torch.crypto import PrivateKey
+    from go_ibft_tpu_torch.sched import TenantScheduler
+
+    def src(seed, n):
+        keys = [PrivateKey.from_seed(b"bench-%d-%d" % (seed, i)) for i in range(n)]
+        return ECDSABackend.static_validators({k.address: 1 for k in keys})
+
+    rounds = {"a": (build_signed_round(4, seed=11), src(11, 4)),
+              "b": (build_signed_round(4, seed=22, corrupt_frac=0.5), src(22, 4)),
+              "c": (build_signed_round(8, seed=202, corrupt_frac=0.5), src(202, 8))}
+    sched = TenantScheduler(window_s=0.05, route="device", torch_device=route_device)
+    handles = {tid: sched.register(tid, s) for tid, (_r, s) in rounds.items()}
+    out = {}
+
+    def run(tid):
+        r = rounds[tid][0]
+        h = handles[tid]
+        out[tid] = (h.verify_senders(r.prepares), h.verify_seal_lanes([(r.proposal_hash, x) for x in r.seals], 1))
+
+    with sched:
+        threads = [threading.Thread(target=run, args=(tid,)) for tid in rounds]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    stats = sched.stats()
+    assert stats["flush_faults"] == 0 and sched._dispatcher.routes["host"] == 0
+    return out, rounds
+
+
+@pytest.mark.cuda
+def test_scheduler_device_route_on_card_matches_its_cpu_run(cuda_device):
+    """The coalesced dispatcher's device route on the card gives its CPU
+    run's verdicts (the plain kernels) and the host oracle's, and launches
+    the digest and recovery kernels."""
+    from go_ibft_tpu_torch.verify import HostBatchVerifier
+
+    before = (tq.digest_words.launches, ecrecover.recover.launches)
+    card, rounds = _sched_drains(cuda_device)
+    assert tq.digest_words.launches > before[0] and ecrecover.recover.launches > before[1]
+    cpu, _ = _sched_drains("cpu")
+    for tid, (r, s) in rounds.items():
+        for a, b in zip(card[tid], cpu[tid]):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(card[tid][0], HostBatchVerifier(s).verify_senders(r.prepares))
+        np.testing.assert_array_equal(card[tid][1], r.expected_seal_mask)
+
+
+@pytest.mark.cuda
+def test_checkpoint_verifier_on_card_matches_host_route(cuda_device):
+    """``CheckpointVerifier(device=True)`` on the card: the host route's
+    anchor for an honest skip chain, its rejection for a forged head, and
+    one launch of each pairing kernel a chain."""
+    from dataclasses import replace
+
+    from go_ibft_tpu_torch.crypto import PrivateKey
+    from go_ibft_tpu_torch.crypto.bls import BLSPrivateKey
+    from go_ibft_tpu_torch.crypto.keccak import keccak256
+    from go_ibft_tpu_torch.lightsync import CheckpointError, CheckpointRecord, Checkpointer, CheckpointVerifier
+    from go_ibft_tpu_torch.ops import bls_kernels
+
+    keys = [PrivateKey.from_seed(b"lightsync-%d" % i) for i in range(4)]
+    bls = {k.address: BLSPrivateKey.from_seed(b"lightsync-bls-%d" % i) for i, k in enumerate(keys)}
+    powers = {k.address: 1 for k in keys}
+    ck = Checkpointer(2, lambda _h: powers, signers=bls)
+    for h in range(1, 9):
+        ck.on_finalize(h, keccak256(b"ls static blk %d" % h))
+    pubkeys = lambda _h: {a: k.pubkey for a, k in bls.items()}  # noqa: E731
+    payload = ck.wire_payload()
+    before = bls_kernels.miller.launches
+    card = CheckpointVerifier(pubkeys, device=True, torch_device=cuda_device).verify_chain(payload, powers)
+    assert bls_kernels.miller.launches == before + 1
+    host = CheckpointVerifier(pubkeys).verify_chain(payload, powers)
+    assert (card.height, card.epoch, card.powers, card.lanes) == (host.height, host.epoch, host.powers, host.lanes)
+    head = replace(CheckpointRecord.decode(bytes.fromhex(payload["checkpoints"][-1])),
+                   chain_commitment=keccak256(b"forked chain"))
+    forged = dict(payload, checkpoints=payload["checkpoints"][:-1] + [head.encode().hex()])
+    for verifier in (CheckpointVerifier(pubkeys, device=True, torch_device=cuda_device), CheckpointVerifier(pubkeys)):
+        with pytest.raises(CheckpointError, match="epoch 4: aggregate checkpoint seal fails"):
+            verifier.verify_chain(forged, powers)
+
+
+@pytest.mark.cuda
+def test_proof_verifier_cert_entries_on_card_match_host(cuda_device):
+    """A proof whose height 2 carries an aggregate quorum certificate:
+    ``ProofVerifier(device=True)`` checks it through ``verify_many`` on the
+    card with the host route's report, and rejects a certificate whose seal
+    signs another message, as the host route does."""
+    from go_ibft_tpu_torch.chain.wal import FinalizedBlock
+    from go_ibft_tpu_torch.crypto import PrivateKey
+    from go_ibft_tpu_torch.crypto import ecdsa as ec
+    from go_ibft_tpu_torch.crypto.backend import encode_signature, proposal_hash_of
+    from go_ibft_tpu_torch.crypto.bls import BLSPrivateKey
+    from go_ibft_tpu_torch.crypto.quorum_cert import AggregateQuorumCertificate, BLSCertifier
+    from go_ibft_tpu_torch.messages.helpers import CommittedSeal
+    from go_ibft_tpu_torch.messages.wire import Proposal
+    from go_ibft_tpu_torch.ops import bls_kernels
+    from go_ibft_tpu_torch.serve import ProofBuilder, ProofError, ProofVerifier
+    from go_ibft_tpu_torch.verify.bls import encode_seal
+
+    keys = [PrivateKey.from_seed(b"serve-%d" % i) for i in range(4)]
+    blk = [BLSPrivateKey.from_seed(b"serve-bls-%d" % i) for i in range(4)]
+    powers = {k.address: 1 for k in keys}
+    pubkeys = {k.address: b.pubkey for k, b in zip(keys, blk)}
+    blocks = []
+    for h in (1, 2):
+        proposal = Proposal(raw_proposal=b"serve block %d" % h, round=0)
+        phash = proposal_hash_of(proposal)
+        blocks.append(FinalizedBlock(h, proposal, [
+            CommittedSeal(k.address, encode_signature(*ec.sign(k, phash))) for k in keys]))
+    phash = proposal_hash_of(blocks[1].proposal)
+    cert = BLSCertifier(lambda _h: powers, lambda _h: pubkeys).build(
+        2, 0, phash, [CommittedSeal(k.address, encode_seal(b.sign(phash))) for k, b in zip(keys[:3], blk[:3])])
+    forged = AggregateQuorumCertificate(height=2, round=0, proposal_hash=phash,
+                                        agg_seal=encode_seal(blk[0].sign(b"\x01" * 32)), bitmap=cert.bitmap)
+
+    class _Source:
+        def __init__(self, chain):
+            self.chain = chain
+
+        def latest_height(self):
+            return 2
+
+        def get_blocks(self, start, end):
+            return [b for b in self.chain if start <= b.height <= end]
+
+    for c, ok in ((cert, True), (forged, False)):
+        chain = [blocks[0], FinalizedBlock(2, blocks[1].proposal, [], cert=c)]
+        proof = ProofBuilder(_Source(chain), lambda _h: powers).build(0, 2)
+        outcomes = []
+        for kw in ({"device": True, "torch_device": cuda_device}, {}):
+            before = bls_kernels.miller.launches
+            try:
+                outcomes.append(("ok", ProofVerifier(bls_keys_for_height=lambda _h: pubkeys, **kw).verify(proof, powers)))
+            except ProofError as err:
+                outcomes.append(("err", str(err)))
+            if kw:
+                assert bls_kernels.miller.launches == before + 1
+        assert outcomes[0] == outcomes[1] and (outcomes[0][0] == "ok") == ok
