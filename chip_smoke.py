@@ -115,7 +115,8 @@ Phases, in order (any failure exits non-zero and prints no result):
 and the recovery kernel of whichever ``go_ibft_tpu_torch`` comes first on
 the import path, so that two checkouts are timed by the same code in one
 call (``digest_only`` below); ``--bls-kernels-only`` does the same for the
-BLS kernels (``bls_kernels_only``).  ``--main-profile`` and
+BLS kernels (``bls_kernels_only``), and ``--main-path-ab`` for phase 4's
+``certify_round`` and engine run A (``main_path_ab``).  ``--main-profile`` and
 ``--bls-profile`` only profile phase 7's kernels and calls (``main_profile``)
 and config #4's BLS kernels and one check (``bls_profile``); phases 7 and
 10 run them.
@@ -1353,6 +1354,32 @@ SERVING_VALIDATORS, SERVING_HEIGHTS, SERVING_CHUNK, SERVING_CLIENTS = 100, 4, 2,
 CKPT_HEIGHTS, CKPT_SPACING, CKPT_MAX_DISPATCHES = 1_000_000, 1000, 4
 
 
+def drain_split(records, drain_ms, sig_ms) -> dict:
+    """Phase 11a's drain time split by the scheduler's own spans (host
+    clock): a request's mean drain (submit to verdicts, ``drain_ms``); the
+    mean flush it rode in (``sched.coalesce``, each flush weighted by its
+    requests); the dispatcher's share of a flush (``sched.dispatch``); and
+    in it the recovery kernel's launches to their verdicts on the host
+    (``sig_ms``, the tapped ``_sig_mask``).  The rest of a drain is the wait
+    before its flush starts (the coalescing window, a flush in progress)
+    and the delivery after it."""
+    spans = [(name, dur / 1e3, args or {}) for kind, name, _track, _t0, dur, args in records if kind == "X"]
+    flushes = [(ms, args.get("requests", 0)) for name, ms, args in spans if name == "sched.coalesce"]
+    dispatches = [ms for name, ms, _args in spans if name == "sched.dispatch"]
+    requests = sum(r for _ms, r in flushes)
+    per_request = sum(ms * r for ms, r in flushes) / requests
+    drain = statistics.mean(drain_ms)
+    return {
+        "requests": len(drain_ms), "flushes": len(flushes), "recovery_launches": len(sig_ms),
+        "drain_mean_ms": drain, "drain_p50_ms": statistics.median(drain_ms),
+        "flush_mean_ms": statistics.mean(ms for ms, _r in flushes),
+        "flush_per_request_ms": per_request,
+        "dispatch_mean_ms": statistics.mean(dispatches),
+        "recovery_to_host_per_flush_ms": sum(sig_ms) / len(flushes),
+        "outside_flush_per_request_ms": drain - per_request,
+    }
+
+
 def serving_phase(report: dict, ident: str, counts, holds, dev=None, small: bool = False) -> dict:
     """Phase 11: the multi-tenant and read planes on the card.
 
@@ -1386,7 +1413,8 @@ def serving_phase(report: dict, ident: str, counts, holds, dev=None, small: bool
     from go_ibft_tpu_torch.crypto.backend import proposal_hash_of
     from go_ibft_tpu_torch.lightsync import CheckpointClient, skip_path
     from go_ibft_tpu_torch.node import ProofApiServer
-    from go_ibft_tpu_torch.sched import CoalescedDispatcher, TenantScheduler
+    from go_ibft_tpu_torch.obs import trace
+    from go_ibft_tpu_torch.sched import DRAIN_MS_KEY, CoalescedDispatcher, TenantScheduler
     from go_ibft_tpu_torch.serve import (
         FinalityProof, ProofBuilder, ProofCache, ProofError, ProofServer, ProofVerifier, SigVerdictCache,
         any_signer_source,
@@ -1403,7 +1431,11 @@ def serving_phase(report: dict, ident: str, counts, holds, dev=None, small: bool
     kept: dict = {}
 
     class Tapped(CoalescedDispatcher):
-        """The device route, keeping the first live inputs of each shape."""
+        """The device route, keeping the first live inputs of each shape,
+        and the host time of each launch of the recovery kernel to its
+        verdicts on the host (``sig_ms``)."""
+
+        sig_ms: list = []
 
         def _upload(self, name, a):
             t = super()._upload(name, a)
@@ -1419,7 +1451,11 @@ def serving_phase(report: dict, ident: str, counts, holds, dev=None, small: bool
             key = ("secp256k1_recover", tuple(inputs[3].shape))
             if key not in kept:
                 kept[key] = tuple(x.clone() for x in inputs[:4])
-            return super()._sig_mask(inputs, table)
+            t0 = time.perf_counter()
+            try:
+                return super()._sig_mask(inputs, table)
+            finally:
+                self.sig_ms.append((time.perf_counter() - t0) * 1e3)
 
     dispatcher = Tapped("device", torch_device=dev)
     dispatcher.warmup(lanes=(8, 32, 128, 512))
@@ -1446,10 +1482,13 @@ def serving_phase(report: dict, ident: str, counts, holds, dev=None, small: bool
     rounds = SERVING_ROUNDS if not small else 1
     sched = scheduler(window_s=0.002)
     before = read_counts()
+    rec = trace.enable()
     t0 = time.perf_counter()
     with sched:
         masks = sv.coalesced_drains(sched, tenants, rounds)
     a_wall = time.perf_counter() - t0
+    trace.disable()
+    split = drain_split(rec.snapshot(), metrics.get_histogram(DRAIN_MS_KEY), dispatcher.sig_ms)
     a_counts = {k: v - before[k] for k, v in read_counts().items()}
     stats = clean(sched, "11a drains")
     for t in tenants:
@@ -1476,6 +1515,9 @@ def serving_phase(report: dict, ident: str, counts, holds, dev=None, small: bool
         f"recovery launches a dispatch, {a_wall:.3f} s ({ident})")
     for tid, row in a["tenants"].items():
         log(f"    {tid}: drain p50 {row['drain_p50_ms']:.3f} ms, p99 {row['drain_p99_ms']:.3f} ms")
+    a["drain_split"] = split
+    log(f"[11] a drain split (spans sched.coalesce and sched.dispatch, host clock, {ident}): "
+        + _json.dumps({k: round(v, 4) if isinstance(v, float) else v for k, v in split.items()}))
     chain_sizes = sv.CONFIG10_SIZES if not small else (4,)
     chain_heights = SERVING_CHAIN_HEIGHTS if not small else 1
     runs = {}
@@ -1505,7 +1547,7 @@ def serving_phase(report: dict, ident: str, counts, holds, dev=None, small: bool
     with rsched:
         builder = ProofBuilder(sv.ListSource(blocks), src)
         recording = sv.RecordingLanes(rsched.register("c12-gate", any_signer_source, priority="read"))
-        gate = ProofVerifier(lane_verifier=recording)
+        gate = ProofVerifier(lane_verifier=recording, torch_device=dev)
         for checkpoint, target in reqs:
             gate.verify(builder.build(checkpoint, target), src(checkpoint + 1))
         check(bool(recording.lanes), "11b: the oracle gate drained lanes")
@@ -1514,7 +1556,7 @@ def serving_phase(report: dict, ident: str, counts, holds, dev=None, small: bool
               f"11b: {len(recording.lanes)} served lanes' verdicts == HostBatchVerifier lane for lane")
         tampered, bad = sv.tamper(builder.build(0, SERVING_HEIGHTS), quorum)
         try:
-            ProofVerifier(lane_verifier=recording).verify(tampered, src(1))
+            ProofVerifier(lane_verifier=recording, torch_device=dev).verify(tampered, src(1))
         except ProofError as err:
             b["tampered_error"] = str(err)
         else:
@@ -1523,7 +1565,7 @@ def serving_phase(report: dict, ident: str, counts, holds, dev=None, small: bool
         check(not host.verify_seal_lanes([(phash, s) for s in bad], 1).any(),
               "11b: the oracle rejects every tampered seal")
         server = ProofServer(ProofBuilder(sv.ListSource(blocks), src), ProofCache(chunk_heights=SERVING_CHUNK),
-                             scheduler=rsched)
+                             scheduler=rsched, torch_device=dev)
         passes = []
         for _ in range(2):
             t0 = time.perf_counter()
@@ -1551,12 +1593,12 @@ def serving_phase(report: dict, ident: str, counts, holds, dev=None, small: bool
         serve_stats = server.stats()
         t0 = time.perf_counter()
         for _ in range(clients):
-            ProofVerifier(lane_verifier=sv.DispatcherLanes("device", dev),
-                          sig_cache=SigVerdictCache()).verify(proof, src(1))
+            # No scheduler: its own DispatcherLanes on the card.
+            ProofVerifier(torch_device=dev, sig_cache=SigVerdictCache()).verify(proof, src(1))
         per_client_s = time.perf_counter() - t0
         b.update(coalesced_proofs_per_s=clients / coalesced_s, per_client_proofs_per_s=clients / per_client_s,
                  sig_cache=serve_stats["verify"]["sig_cache"], cache=serve_stats["cache"])
-        qos = sv.proof_flood_qos(rsched, blocks[:SERVING_HEIGHTS], src)
+        qos = sv.proof_flood_qos(rsched, blocks[:SERVING_HEIGHTS], src, torch_device=dev)
         server.close()
     check(qos["missed"] == 0, f"11b: the live chain missed no height under the proof flood ({qos})")
     b["qos"] = qos
@@ -1576,14 +1618,24 @@ def serving_phase(report: dict, ident: str, counts, holds, dev=None, small: bool
     csched = scheduler(window_s=0.002)
     with csched:
         source = sv.ListSource(blocks18)
-        server = ProofServer(ProofBuilder(source, validators), ProofCache(chunk_heights=4), scheduler=csched)
+        server = ProofServer(ProofBuilder(source, validators), ProofCache(chunk_heights=4), scheduler=csched,
+                             torch_device=dev)
         api = ProofApiServer(server, source.latest_height, checkpoints_fn=ckpt.wire_payload)
         api.start()
         try:
-            client = CheckpointClient(api.url, registry, device=True, torch_device=dev)
+            # The client's own checks on the card: the pairings and its
+            # bridge proof's seal lanes (a DispatcherLanes of its own; the
+            # server's self-check drains through csched).
+            client = CheckpointClient(api.url, registry, torch_device=dev)
+            before, server_sigs = read_counts(), len(dispatcher.sig_ms)
             t0 = time.perf_counter()
             rep = client.cold_sync(set_a)
             c["real_sync_s"] = time.perf_counter() - t0
+            c["client_recovery_launches"] = (read_counts()["secp256k1_recover"] - before["secp256k1_recover"]
+                                             - (len(dispatcher.sig_ms) - server_sigs))
+            if card:
+                check(c["client_recovery_launches"] > 0,
+                      f"11c: the client's bridge seals launched secp256k1_recover ({c['client_recovery_launches']})")
             check(rep.anchor_height == len(blocks18) and rep.bridge_bytes > 0 and rep.powers == set_b,
                   f"11c: the cold sync anchors at the head across the rotation ({rep})")
             check(rep.pairing_dispatches <= CKPT_MAX_DISPATCHES,
@@ -1592,7 +1644,7 @@ def serving_phase(report: dict, ident: str, counts, holds, dev=None, small: bool
             payload["proof"]["diffs"].append({"height": len(blocks18) - 1, "added": {"ab" * 20: 1000},
                                               "removed": []})
             try:
-                ProofVerifier(require_commitments=True).verify(
+                ProofVerifier(require_commitments=True, torch_device=dev).verify(
                     FinalityProof.from_wire(_json.loads(_json.dumps(payload["proof"]))), validators(8))
             except ProofError as err:
                 check("next-set root" in str(err), f"11c: the splice dies at the commitment check ({err})")
@@ -1613,7 +1665,7 @@ def serving_phase(report: dict, ident: str, counts, holds, dev=None, small: bool
     api2.start()
     try:
         t0 = time.perf_counter()
-        rep2 = CheckpointClient(api2.url, registry2, device=True, torch_device=dev).cold_sync(powers2)
+        rep2 = CheckpointClient(api2.url, registry2, torch_device=dev).cold_sync(powers2)
         c["structural_sync_s"] = time.perf_counter() - t0
     finally:
         api2.stop()
@@ -1696,6 +1748,72 @@ def digest_only() -> int:
         out["recover"][v.numel()] = cuda_time_ms(lambda: ecrecover.launch(zw, r, s, v), 20)
     out["ptxas"] = [line.strip() for line in _build.build_logs.get("secp256k1_recover", "").splitlines()
                     if "registers" in line or "stack frame" in line]
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def main_path_ab() -> int:
+    """Time the main path of the ``go_ibft_tpu_torch`` first on the import
+    path, as phases 7 and 8 do, so that two checkouts are timed by the same
+    code in one call: ``certify_round`` on phase 3's 100-validator round and
+    300-validator round with 30 % bad signatures (median of 20 calls after
+    one warm-up, host clock and CUDA events, and the launches of one call),
+    then engine run A (one engine among 100 validators, 5 heights through a
+    ``DeviceBatchVerifier``; the medians of accept -> finalize and
+    ``run_sequence``, and the launches of the 5 heights).  Run it against
+    each checkout in turn, alternating (A B B A A B), in one call:
+
+        PYTHONSAFEPATH=1 PYTHONPATH=<checkout> python3 chip_smoke.py --main-path-ab
+
+    Prints the card's identity, then one JSON line."""
+    import go_ibft_tpu_torch
+    from go_ibft_tpu_torch import _build
+    from go_ibft_tpu_torch.bench import build_signed_round
+    from go_ibft_tpu_torch.bench.engine import Committee, EngineRunner, check_height
+    from go_ibft_tpu_torch.crypto.backend import ECDSABackend
+    from go_ibft_tpu_torch.ops import ecrecover, quorum
+    from go_ibft_tpu_torch.verify import DeviceBatchVerifier
+
+    print(gpu_identity(), flush=True)
+    _build.build_all()
+    fns = {"keccak256_digest": quorum.digest_words, "secp256k1_recover": ecrecover.recover}
+
+    def counts():
+        return {name: fn.launches for name, fn in fns.items()}
+
+    out = {"package": os.path.dirname(os.path.abspath(go_ibft_tpu_torch.__file__)), "certify_round": {}}
+    for label, n, bad in (("100v", 100, 0.0), ("300v_30bad", 300, 0.3)):
+        rnd = build_signed_round(n, corrupt_frac=bad, seed=0)
+        verifier = DeviceBatchVerifier(ECDSABackend.static_validators({m.sender: 1 for m in rnd.prepares}))
+
+        def call(verifier=verifier, rnd=rnd):
+            return verifier.certify_round(rnd.prepares, rnd.proposal_hash, rnd.seals, rnd.height)
+
+        before = counts()
+        masks = call()
+        host_ms, event_ms = median_ms(call, calls=20)
+        out["certify_round"][label] = {
+            "host_ms": host_ms, "event_ms": event_ms,
+            "launches": {k: v - before[k] for k, v in counts().items()},
+            "valid": [int(masks[0].sum()), bool(masks[1]), int(masks[2].sum()), bool(masks[3])],
+        }
+    committee = Committee(100, seed=0)
+    heights = committee.heights(1, 5)
+    card = DeviceBatchVerifier(committee.src)
+    card.warmup(lanes=(8, 128), blocks=(2, 8))
+    runner = EngineRunner(committee, 1, card)
+    before, runs = counts(), []
+    for h in heights:
+        schedule = committee.schedule(h)
+        run = runner.run_height(h, schedule)
+        check_height(committee, run)
+        runs.append(run)
+    out["run_A"] = {
+        "accept_to_finalize_ms": statistics.median(r.accept_to_finalize_ms for r in runs),
+        "run_sequence_ms": statistics.median(r.run_sequence_ms for r in runs),
+        "accept_to_finalize_all_ms": [r.accept_to_finalize_ms for r in runs],
+        "launches": {k: v - before[k] for k, v in counts().items()},
+    }
     print(json.dumps(out), flush=True)
     return 0
 
@@ -1889,6 +2007,8 @@ def main() -> int:
                         help="only profile config #4's BLS kernels and one check (see bls_profile)")
     parser.add_argument("--main-profile", action="store_true",
                         help="only profile phase 7's kernels and certify_round calls (see main_profile)")
+    parser.add_argument("--main-path-ab", action="store_true",
+                        help="only time certify_round and engine run A (see main_path_ab)")
     parser.add_argument("--bls-kernels-only", action="store_true",
                         help="only time the BLS kernels at 1, 64 and 1,024 lanes (see bls_kernels_only)")
     args = parser.parse_args()
@@ -1902,6 +2022,8 @@ def main() -> int:
         return bls_profile()
     if args.bls_kernels_only:
         return bls_kernels_only()
+    if args.main_path_ab:
+        return main_path_ab()
     if args.main_profile:
         return main_profile()
 

@@ -14,11 +14,10 @@ package's ``bench.py`` configs #10, #12 and #18 (``chip_smoke.py`` phase 11).
   each committee size, each in an event-loop thread of its own (or one
   after another), every engine a tenant of one scheduler, over config
   #10's asymmetric links;
-* :func:`serving_chain`, :func:`schedule`, :class:`RecordingLanes`,
-  :class:`DispatcherLanes` and :func:`proof_flood_qos` — config #12: a
-  finalized chain with exactly-quorum seal sets, the overlapping request
-  schedule, a recording lane verifier, a per-client lane verifier with no
-  shared cache, and a live 4-validator chain on the consensus tier beside
+* :func:`serving_chain`, :func:`schedule`, :class:`RecordingLanes` and
+  :func:`proof_flood_qos` — config #12: a finalized chain with
+  exactly-quorum seal sets, the overlapping request schedule, a recording
+  lane verifier, and a live 4-validator chain on the consensus tier beside
   a proof flood on the read tier;
 * :func:`checkpoint_chain` and :func:`structural_checkpointer` — config
   #18: a 16-height chain carrying next-set commitments with a rotation at
@@ -49,7 +48,6 @@ from ..crypto.quorum_cert import BLSKeyRegistry
 from ..lightsync import Checkpointer, embed_next_set, set_root
 from ..messages.helpers import CommittedSeal
 from ..messages.wire import Proposal, View
-from ..sched import CoalescedDispatcher
 from ..verify import HostBatchVerifier
 from .engine import NullLogger
 from .workload import _keys, build_signed_round
@@ -270,22 +268,11 @@ class RecordingLanes:
         return mask
 
 
-class DispatcherLanes:
-    """A client's own lane verifier: signature validity through a
-    :class:`~go_ibft_tpu_torch.sched.CoalescedDispatcher` of its own (no
-    shared verdict cache, no coalescing across clients)."""
-
-    def __init__(self, route: str = "device", torch_device=None):
-        self.dispatcher = CoalescedDispatcher(route, torch_device=torch_device)
-
-    def verify_seal_lanes(self, lanes, height):
-        return self.dispatcher.dispatch([], list(lanes))[1]
-
-
-def proof_flood_qos(sched, flood_blocks, flood_src, heights: int = 2) -> dict:
+def proof_flood_qos(sched, flood_blocks, flood_src, heights: int = 2, torch_device=None) -> dict:
     """Config #12's QoS bound: a 4-validator chain on the consensus tier
     finalizes ``heights`` while a proof flood hammers the read tier of the
-    same scheduler.  Returns the evidence; ``missed`` must be 0."""
+    same scheduler (its server's device route on ``torch_device``, ``None``:
+    the card).  Returns the evidence; ``missed`` must be 0."""
     from ..serve import ProofBuilder, ProofCache, ProofServer
 
     stop = threading.Event()
@@ -294,7 +281,7 @@ def proof_flood_qos(sched, flood_blocks, flood_src, heights: int = 2) -> dict:
 
     def flood():
         server = ProofServer(ProofBuilder(ListSource(flood_blocks), flood_src), ProofCache(chunk_heights=2),
-                             scheduler=sched)
+                             scheduler=sched, torch_device=torch_device)
         try:
             while not stop.is_set():
                 # A fresh verdict cache each pass: real lanes through the

@@ -405,16 +405,17 @@ class CheckpointVerifier:
     quorum never signed a record with a stale ``set_root``, and a forged
     record fails its pairing lane.
 
-    ``device`` keeps the JAX package's switch and its default (the host
-    batch); with it on, the batched check runs the multi-pairing kernels on
-    ``torch_device`` (``None``: the card), whose fault propagates.
+    ``device`` (default on) runs the batched check through the
+    multi-pairing kernels on ``torch_device`` (``None``: the card), whose
+    fault propagates; ``device=False`` asks for the host batch, the JAX
+    package's default.
     """
 
     def __init__(
         self,
         bls_keys_for_height: Callable[[int], Mapping[bytes, "hbls.PointG1"]],
         *,
-        device: bool = False,
+        device: bool = True,
         multipair=None,
         torch_device: DeviceLike = None,
     ) -> None:

@@ -20,10 +20,13 @@ transfers a handful of ~100-byte certificates plus one short tail proof
 instead of a million diff hops — the bench (config #18,
 ``checkpoint_sync_1m``) measures the ratio and pins the dispatch count.
 
-``device`` / ``torch_device`` route the batched pairing checks (the
-checkpoint chain's and the proofs' certificate entries) to the
-multi-pairing kernels on ``torch_device`` (``None``: the card); the
-default is the host batch, as in the JAX package.
+``device`` (default on) / ``torch_device`` (``None``: the card) run every
+check of a sync on the card: the batched pairing checks (the checkpoint
+chain's and the proofs' certificate entries) through the multi-pairing
+kernels, and the tail and bridge proofs' seal lanes through the digest
+and recovery kernels (:class:`~go_ibft_tpu_torch.serve.server.
+DispatcherLanes`).  ``device=False`` asks for the host route, the JAX
+package's default.
 
 ``fetch`` may be a base URL (``"http://127.0.0.1:9090"``) or any
 callable ``path -> (json_payload, wire_bytes)`` (tests and in-process
@@ -39,7 +42,7 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
 from ..utils import metrics
-from ..utils.device import DeviceLike
+from ..utils.device import DeviceLike, resolve_device
 from .checkpoint import CheckpointAnchor, CheckpointError, CheckpointVerifier
 
 __all__ = [
@@ -114,7 +117,7 @@ class CheckpointClient:
         fetch,
         bls_keys_for_height: Optional[Callable[[int], Mapping]] = None,
         *,
-        device: bool = False,
+        device: bool = True,
         require_commitments: bool = True,
         timeout_s: float = 10.0,
         torch_device: DeviceLike = None,
@@ -126,7 +129,7 @@ class CheckpointClient:
         )
         self._bls_keys = bls_keys_for_height
         self._device = device
-        self._torch_device = torch_device
+        self._torch_device = resolve_device(torch_device) if device else None
         self._require_commitments = require_commitments
 
     # -- wire ------------------------------------------------------------
@@ -251,8 +254,8 @@ class CheckpointClient:
                 return new_powers
 
             verifier = CheckpointVerifier(
-            self._bls_keys, device=self._device, torch_device=self._torch_device
-        )
+                self._bls_keys, device=self._device, torch_device=self._torch_device
+            )
             anchor = verifier.verify_chain(
                 payload, trusted_powers, bridge=bridge
             )

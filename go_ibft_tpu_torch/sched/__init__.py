@@ -19,6 +19,7 @@ from .scheduler import (
     SHED_LANES_KEY,
     SchedFlushTimeout,
     SchedQueueFull,
+    SchedRefused,
     TenantScheduler,
     TenantVerifierHandle,
 )
@@ -28,6 +29,7 @@ __all__ = [
     "PRIORITY_RANK",
     "SchedFlushTimeout",
     "SchedQueueFull",
+    "SchedRefused",
     "TenantScheduler",
     "TenantVerifierHandle",
     "QUEUE_LANES_KEY",

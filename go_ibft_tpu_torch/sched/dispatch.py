@@ -64,6 +64,7 @@ from ..verify.batch import (
     _as_signed,
     pack_seal_lanes,
     pack_sender_digest_rows,
+    pack_sender_lanes,
     pack_validator_table,
 )
 from ..verify.pipeline import PackCache, SenderPack
@@ -310,20 +311,20 @@ class CoalescedDispatcher:
         sender_ok = np.zeros(len(msgs), dtype=bool)
         seal_ok = np.zeros(len(lanes), dtype=bool)
         if msgs:
-            # The pack sequence (cache-hit reuse, oversize payloads
-            # digested on the host, the digest kernel) is the single-tenant
-            # plane's own function — shared, not forked, so a fix there can
-            # never miss this route.  Lookups are pre-routed per tenant;
-            # stores route back through the owners shim.
-            inputs = pack_sender_digest_rows(
+            # Lookups are pre-routed per tenant; stores route back through
+            # the owners shim.  The digest sequence (the digest kernel,
+            # oversize payloads digested on the host) is the single-tenant
+            # plane's own function — shared, not forked, so a fix there
+            # can never miss this route.
+            packed = pack_sender_lanes(
                 msgs,
                 cache=_RoutingPackCache(owners),
                 hits=[
                     (owners[id(m)].lookup(m) if id(m) in owners else None)
                     for m in msgs
                 ],
-                upload=self._upload,
             )
+            inputs = pack_sender_digest_rows(packed, self._upload)
             # Claimed-address table: every live lane's claimed sender is a
             # member by construction, so the kernel's (sig & member) mask
             # reduces to signature validity — tenant membership stays on

@@ -54,7 +54,11 @@ again in the caller's thread, a timed-out request raises
 :class:`SchedFlushTimeout`, and both count in ``flush_faults``.  Off the
 card the JAX behaviour stays.  Shedding under backpressure
 (:class:`SchedQueueFull`) is a load policy, not a fault: a shed request is
-served by the oracle on the card too, and counted (``shed_lanes``).
+served by the oracle on the card too, and counted (``shed_lanes``).  A
+refusal for the lifecycle, not the load (:class:`SchedRefused`: the
+scheduler is not running, the tenant is draining, or it was unregistered
+with the request in flight) is counted in ``refusals``; off the card the
+oracle serves it, as in the JAX package, and on the card it raises.
 
 Cache namespacing (the correctness satellite): per-message packs and seal
 verdicts become process-shared state here, so both are namespaced by
@@ -95,6 +99,7 @@ __all__ = [
     "PRIORITY_RANK",
     "SchedFlushTimeout",
     "SchedQueueFull",
+    "SchedRefused",
     "TenantScheduler",
     "TenantVerifierHandle",
     "QUEUE_LANES_KEY",
@@ -128,6 +133,14 @@ class SchedQueueFull(RuntimeError):
     the scheduler never buffers unboundedly for a wedged or flooding
     tenant.  The handle resolves the request against its local host
     oracle instead (shed, not dropped — verdicts are never lost)."""
+
+
+class SchedRefused(SchedQueueFull):
+    """A refusal for the lifecycle, not the load: the scheduler is not
+    running, or the tenant is draining or was unregistered.  Off the card
+    the handle's oracle serves it, as it serves a shed; on the card it is
+    raised in the caller's thread (the card's plane is closed to this
+    tenant, and no host route may stand in for it)."""
 
 
 class SchedFlushTimeout(TimeoutError):
@@ -354,6 +367,7 @@ class TenantScheduler:
         self.coalesced_requests = 0
         self.coalesced_lanes = 0
         self.flush_faults = 0
+        self.refusals = 0
 
     # -- lifecycle -------------------------------------------------------
 
@@ -512,12 +526,14 @@ class TenantScheduler:
     ) -> bool:
         """Zero-downtime removal.  With ``drain`` (default) the tenant
         stops accepting NEW submissions immediately — its handle sheds
-        them to the host oracle, so verdicts are never lost — while
+        them to the host oracle, so verdicts are never lost (on the card
+        it raises :class:`SchedRefused`) — while
         everything already queued keeps flushing through the shared
         dispatch; the tenant is dropped once its queue empties.
         ``drain=False`` (or a drain timeout, or a stopped scheduler)
-        refuses the still-queued requests back to their callers' oracles,
-        exactly like :meth:`unregister`.  Returns True when the queue
+        refuses the still-queued requests back to their callers' oracles
+        (on the card, to their callers as :class:`SchedRefused`), exactly
+        like :meth:`unregister`.  Returns True when the queue
         drained clean.  Survivor tenants never miss a height either way:
         nothing pauses, their queued lanes keep shipping."""
         with self._cv:
@@ -549,12 +565,12 @@ class TenantScheduler:
             if tenant is None:
                 return
             self._rr.remove(tenant_id)
-            # Outstanding requests are refused back to the handle's oracle
-            # rather than silently dropped.
+            # Outstanding requests are refused back to their handles (to
+            # the oracle off the card) rather than silently dropped.
             for req in tenant.queue:
                 self._pending_reqs -= 1
                 self._pending_lanes -= req.lanes
-                req.error = SchedQueueFull("tenant unregistered")
+                req.error = SchedRefused("tenant unregistered")
                 req.done.set()
             tenant.queue.clear()
             tenant.queued_lanes = 0
@@ -575,12 +591,12 @@ class TenantScheduler:
         req = _Request(tenant, kind, items, height, out, out_idxs)
         with self._cv:
             if not self._running:
-                raise SchedQueueFull("scheduler is not running")
+                raise SchedRefused("scheduler is not running")
             if tenant.draining or self._tenants.get(tenant.tid) is not tenant:
                 # Mid-removal (or an already-removed handle): refuse so
                 # the caller's oracle serves the verdict immediately
                 # instead of queueing work nothing will ever select.
-                raise SchedQueueFull(f"tenant {tenant.tid!r} is draining")
+                raise SchedRefused(f"tenant {tenant.tid!r} is draining")
             cap = (
                 tenant.max_queue_lanes
                 if tenant.max_queue_lanes is not None
@@ -613,6 +629,11 @@ class TenantScheduler:
         with self._cv:
             self.flush_faults += 1
         metrics.inc_counter(FLUSH_FAULTS_KEY)
+
+    def note_refusal(self) -> None:
+        """Count a :class:`SchedRefused` that reached a handle."""
+        with self._cv:
+            self.refusals += 1
 
     def note_shed(self, tenant: _Tenant, lanes: int) -> None:
         tenant.shed_lanes += lanes
@@ -901,6 +922,7 @@ class TenantScheduler:
             requests = self.coalesced_requests
             lanes = self.coalesced_lanes
             faults = self.flush_faults
+            refusals = self.refusals
         return {
             "tenants": tenants,
             "dispatches": dispatches,
@@ -910,6 +932,7 @@ class TenantScheduler:
                 round(requests / dispatches, 3) if dispatches else None
             ),
             "flush_faults": faults,
+            "refusals": refusals,
             # Tests wrap the dispatcher in doubles without describe();
             # degrade to the class name rather than breaking stats().
             "dispatcher": (
@@ -931,9 +954,9 @@ class TenantVerifierHandle:
     against the tenant's own sequential host oracle: membership is
     evaluated over the tenant's validator source, and a shed request is
     resolved by the oracle in the caller's thread (degraded latency, never
-    degraded correctness, and never a blocked scheduler).  A faulted or
-    timed-out request is too, off the card; on the card it raises in the
-    caller's thread (the module's card rule)."""
+    degraded correctness, and never a blocked scheduler).  A faulted,
+    timed-out or refused request is too, off the card; on the card it
+    raises in the caller's thread (the module's card rule)."""
 
     def __init__(self, scheduler: TenantScheduler, tenant: _Tenant):
         self._sched = scheduler
@@ -1061,8 +1084,13 @@ class TenantVerifierHandle:
                 req = self._sched.submit(
                     self._tenant, kind, chunk, height, out, chunk_idxs
                 )
-            except SchedQueueFull:
-                # Backpressure: serve locally, never block or drop.
+            except SchedQueueFull as err:
+                if isinstance(err, SchedRefused):
+                    self._sched.note_refusal()
+                    if self._sched.on_card:
+                        raise
+                # Backpressure (or, off the card, a refusal): serve
+                # locally, never block or drop.
                 self._sched.note_shed(self._tenant, len(chunk))
                 self._oracle_fill(kind, chunk, height, chunk_idxs, out)
                 continue
@@ -1083,11 +1111,12 @@ class TenantVerifierHandle:
                 self._sched.note_shed(self._tenant, len(chunk))
                 self._oracle_fill(kind, chunk, height, chunk_idxs, out)
             elif req.error is not None:
-                if self._sched.on_card and not isinstance(
-                    req.error, SchedQueueFull
-                ):
-                    # The card's fault (counted in flush_faults by the
-                    # flush): no host route may hide it.
+                if isinstance(req.error, SchedRefused):
+                    self._sched.note_refusal()
+                if self._sched.on_card:
+                    # A flush's fault (counted in flush_faults) or the
+                    # tenant's refusal (in refusals): no host route may
+                    # hide either on the card.
                     raise req.error
                 self._oracle_fill(kind, chunk, height, chunk_idxs, out)
 

@@ -26,6 +26,7 @@ from .proof import (
     walk_sets,
 )
 from .server import (
+    DispatcherLanes,
     ProofServer,
     ProofVerifier,
     SigVerdictCache,
@@ -34,6 +35,7 @@ from .server import (
 
 __all__ = [
     "CachedChunk",
+    "DispatcherLanes",
     "FinalityProof",
     "ProofBuilder",
     "ProofCache",

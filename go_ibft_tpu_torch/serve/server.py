@@ -63,6 +63,7 @@ from .proof import (
 )
 
 __all__ = [
+    "DispatcherLanes",
     "ProofServer",
     "ProofVerifier",
     "SigVerdictCache",
@@ -113,6 +114,28 @@ _ANY_SIGNERS = _AnySigner()
 def any_signer_source(_height: int) -> Mapping[bytes, int]:
     """``validators_for_height`` seam returning the any-signer set."""
     return _ANY_SIGNERS
+
+
+class DispatcherLanes:
+    """A lane verifier of signature validity through a
+    :class:`~go_ibft_tpu_torch.sched.CoalescedDispatcher` of its own (no
+    scheduler, no coalescing across callers): the claimed-address table
+    makes its mask exactly what :func:`any_signer_source` gives a
+    verifier.  ``route="device"`` launches the card's kernels on
+    ``torch_device`` (``None``: the card)."""
+
+    def __init__(self, route: str = "device", torch_device: DeviceLike = None):
+        from ..sched.dispatch import CoalescedDispatcher
+
+        self.dispatcher = CoalescedDispatcher(route, torch_device=torch_device)
+
+    @property
+    def device(self):
+        """What :func:`~go_ibft_tpu_torch.verify.batch.on_card` reads."""
+        return self.dispatcher.device
+
+    def verify_seal_lanes(self, lanes, height):
+        return self.dispatcher.dispatch([], list(lanes))[1]
 
 
 class SigVerdictCache:
@@ -213,10 +236,13 @@ class ProofVerifier:
     ``lane_verifier`` overrides the drain engine (any object with
     ``verify_seal_lanes``; it MUST be built over
     :func:`any_signer_source` so its mask is pure signature validity).
-    ``device`` routes the certificate entries' batched pairing to the
-    multi-pairing kernels on ``torch_device`` (``None``: the card), whose
-    fault propagates; the default is the host batch, as in the JAX
-    package.
+    ``device`` (default on) runs the rest on ``torch_device`` (``None``:
+    the card), whose faults propagate: fresh drains without a scheduler or
+    a lane verifier through a :class:`DispatcherLanes` on the device
+    route, and the certificate entries' batched pairing through the
+    multi-pairing kernels.  ``device=False`` asks for the host route, the
+    JAX package's: the sequential ``HostBatchVerifier`` and the host
+    batch pairing.
     """
 
     def __init__(
@@ -228,7 +254,7 @@ class ProofVerifier:
         sig_cache: Optional[SigVerdictCache] = None,
         tenant_id: Optional[str] = None,
         require_commitments: bool = False,
-        device: bool = False,
+        device: bool = True,
         torch_device: DeviceLike = None,
     ):
         # Enforce next-set content commitments per diff hop
@@ -237,6 +263,8 @@ class ProofVerifier:
         # verifying; a client of a commitment-producing chain turns it
         # on and fabricated/omitted rotations die in walk_sets.
         self._require_commitments = require_commitments
+        self._device = device
+        self._torch_device = resolve_device(torch_device) if device else None
         self._sched = None
         self._tenant_id = None
         if lane_verifier is not None:
@@ -247,11 +275,11 @@ class ProofVerifier:
             self._verifier = scheduler.register(
                 self._tenant_id, any_signer_source, priority="read"
             )
+        elif device:
+            self._verifier = DispatcherLanes("device", self._torch_device)
         else:
             self._verifier = HostBatchVerifier(any_signer_source)
         self._bls_keys = bls_keys_for_height
-        self._device = device
-        self._torch_device = resolve_device(torch_device) if device else None
         self.sig_cache = sig_cache if sig_cache is not None else SigVerdictCache()
         # Counter lock: verify() is documented thread-safe, and LOAD/ADD/
         # STORE increments from concurrent clients would lose updates.
@@ -461,6 +489,8 @@ class ProofServer:
     decode bug, or a builder regression surfaces here, not at a client.
     Self-check drains warm the shared sig-verdict cache, so the first
     client verifying a just-served range pays near zero crypto.
+    ``device`` / ``torch_device`` are its :class:`ProofVerifier`'s (the
+    card unless ``device=False``).
     """
 
     def __init__(
@@ -475,7 +505,7 @@ class ProofServer:
         self_check: bool = True,
         max_proof_heights: int = 4096,
         tenant_id: Optional[str] = None,
-        device: bool = False,
+        device: bool = True,
         torch_device: DeviceLike = None,
     ) -> None:
         self.builder = builder

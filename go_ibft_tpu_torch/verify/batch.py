@@ -628,33 +628,20 @@ def pack_sender_lanes(msgs: Sequence[IbftMessage], *, cache=None, hits=None, pad
 
 
 def pack_sender_digest_rows(
-    msgs: Optional[Sequence[IbftMessage]] = None,
-    *,
-    cache=None,
-    hits=None,
-    pad_lanes: int = 0,
-    lanes: Optional[_SenderLanes] = None,
-    upload: Callable[[str, np.ndarray], torch.Tensor],
+    lanes: _SenderLanes, upload: Callable[[str, np.ndarray], torch.Tensor]
 ) -> Tuple[torch.Tensor, ...]:
-    """The device sender route's one pack sequence: cache-hit reuse and
-    the pack (:func:`pack_sender_lanes`), one launch of the digest kernel
+    """The device sender route's one digest sequence over a packed chunk
+    (:func:`pack_sender_lanes`): one launch of the digest kernel
     (``ops/quorum.py::digest_words``) on the device, and the host digests
-    of oversize payloads written over their rows.  Returns the device
-    tensors ``(zw, r, s, v, claimed, live)``.
+    of oversize payloads written over their rows.  ``upload(name, array)``
+    moves each host array to the device.  Returns the device tensors
+    ``(zw, r, s, v, claimed, live)``.
 
     ONE implementation serves both the single-tenant plane
     (:meth:`DeviceBatchVerifier._upload`) and the multi-tenant coalesced
-    dispatcher (``sched/dispatch.py``), so a fix to the oversize or cache
-    path can never apply to one and silently miss the other.  ``cache`` is
-    the store target for fresh packs (a :class:`PackCache`, or the
-    scheduler's per-tenant routing shim); ``hits`` supplies pre-routed
-    lookups.  ``lanes`` passes a pack made ahead (the chunk pipeline packs
-    the next chunk while the device runs this one), and then ``msgs``,
-    ``cache``, ``hits`` and ``pad_lanes`` are unused.  ``upload(name,
-    array)`` moves each host array to the device.
+    dispatcher (``sched/dispatch.py``), so a fix to the oversize path can
+    never apply to one and silently miss the other.
     """
-    if lanes is None:
-        lanes = pack_sender_lanes(msgs, cache=cache, hits=hits, pad_lanes=pad_lanes)
     zw = quorum.digest_words(upload("blocks", lanes.blocks), upload("counts", lanes.counts))
     if lanes.big:
         idx = torch.as_tensor(lanes.big, device=zw.device)
@@ -959,7 +946,7 @@ class DeviceBatchVerifier:
             return self._staging.upload(slot, tag + name, a)
 
         if isinstance(lanes, _SenderLanes):
-            return pack_sender_digest_rows(lanes=lanes, upload=lambda name, a: up(slot, name, a))
+            return pack_sender_digest_rows(lanes, lambda name, a: up(slot, name, a))
         zw = up(slot, "zw", lanes.zw)
         return (
             zw, up(slot, "r", lanes.r), up(slot, "s", lanes.s), up(slot, "v", lanes.v),

@@ -742,12 +742,13 @@ def test_checkpoint_verifier_on_card_matches_host_route(cuda_device):
     before = bls_kernels.miller.launches
     card = CheckpointVerifier(pubkeys, device=True, torch_device=cuda_device).verify_chain(payload, powers)
     assert bls_kernels.miller.launches == before + 1
-    host = CheckpointVerifier(pubkeys).verify_chain(payload, powers)
+    host = CheckpointVerifier(pubkeys, device=False).verify_chain(payload, powers)
     assert (card.height, card.epoch, card.powers, card.lanes) == (host.height, host.epoch, host.powers, host.lanes)
     head = replace(CheckpointRecord.decode(bytes.fromhex(payload["checkpoints"][-1])),
                    chain_commitment=keccak256(b"forked chain"))
     forged = dict(payload, checkpoints=payload["checkpoints"][:-1] + [head.encode().hex()])
-    for verifier in (CheckpointVerifier(pubkeys, device=True, torch_device=cuda_device), CheckpointVerifier(pubkeys)):
+    for verifier in (CheckpointVerifier(pubkeys, device=True, torch_device=cuda_device),
+                     CheckpointVerifier(pubkeys, device=False)):
         with pytest.raises(CheckpointError, match="epoch 4: aggregate checkpoint seal fails"):
             verifier.verify_chain(forged, powers)
 
@@ -800,12 +801,45 @@ def test_proof_verifier_cert_entries_on_card_match_host(cuda_device):
         chain = [blocks[0], FinalizedBlock(2, blocks[1].proposal, [], cert=c)]
         proof = ProofBuilder(_Source(chain), lambda _h: powers).build(0, 2)
         outcomes = []
-        for kw in ({"device": True, "torch_device": cuda_device}, {}):
+        for kw in ({"device": True, "torch_device": cuda_device}, {"device": False}):
             before = bls_kernels.miller.launches
             try:
                 outcomes.append(("ok", ProofVerifier(bls_keys_for_height=lambda _h: pubkeys, **kw).verify(proof, powers)))
             except ProofError as err:
                 outcomes.append(("err", str(err)))
-            if kw:
+            if kw["device"]:
                 assert bls_kernels.miller.launches == before + 1
         assert outcomes[0] == outcomes[1] and (outcomes[0][0] == "ok") == ok
+
+
+@pytest.mark.cuda
+def test_cold_sync_on_card_launches_recovery_for_its_bridge_and_tail_seals(cuda_device):
+    """``CheckpointClient`` on the card, its default: config #18's chain
+    cold-synced over HTTP to height 14 (anchor 12, a bridge proof across the
+    rotation at 10, a 2-height tail) launches ``secp256k1_recover`` for the
+    proofs' seal lanes and one of each pairing kernel, with the host
+    route's report.  The server runs on the host, so every launch is the
+    client's."""
+    from go_ibft_tpu_torch.bench import serving as sv
+    from go_ibft_tpu_torch.lightsync import CheckpointClient
+    from go_ibft_tpu_torch.node import ProofApiServer
+    from go_ibft_tpu_torch.ops import bls_kernels
+    from go_ibft_tpu_torch.serve import ProofBuilder, ProofCache, ProofServer
+
+    blocks, validators, registry, ckpt, set_a, set_b = sv.checkpoint_chain()
+    source = sv.ListSource(blocks)
+    server = ProofServer(ProofBuilder(source, validators), ProofCache(chunk_heights=4), device=False)
+    api = ProofApiServer(server, source.latest_height, checkpoints_fn=ckpt.wire_payload)
+    api.start()
+    try:
+        before = (ecrecover.recover.launches, bls_kernels.miller.launches)
+        card = CheckpointClient(api.url, registry).cold_sync(set_a, target=14)
+        launched = (ecrecover.recover.launches - before[0], bls_kernels.miller.launches - before[1])
+        host = CheckpointClient(api.url, registry, device=False).cold_sync(set_a, target=14)
+    finally:
+        api.stop()
+        server.close()
+    assert launched[0] >= 2 and launched[1] == 1, launched  # the bridge's and the tail's drains
+    assert (card.anchor_height, card.tail_heights, card.powers) == (12, 2, set_b)
+    assert card.bridge_bytes > 0 and card.tail_bytes > 0
+    assert {k: v for k, v in vars(card).items()} == {k: v for k, v in vars(host).items()}

@@ -55,6 +55,9 @@ class World:
 
     def __init__(self, pkg: str):
         p = self.p = P(pkg)
+        # The port's ProofVerifier runs on the card unless asked for its
+        # host route, the JAX package's (whose ProofVerifier has no switch).
+        self.host = {"device": False} if pkg == PORT else {}
         self.keys = [p.crypto.PrivateKey.from_seed(b"lightsync-%d" % i) for i in range(5)]
         self.by_addr = {k.address: k for k in self.keys}
         self.bls = {k.address: p.bls.BLSPrivateKey.from_seed(b"lightsync-bls-%d" % i) for i, k in enumerate(self.keys)}
@@ -219,7 +222,7 @@ def _doctor_head(w, payload, **changes):
 
 
 def _lying_bridge(w):
-    return w.p.ls.CheckpointVerifier(w.pubkeys).verify_chain(
+    return w.p.ls.CheckpointVerifier(w.pubkeys, device=False).verify_chain(
         w.rot_ckpt.wire_payload(), w.set_a, bridge=lambda *_a: {b"evil-validator-addr": 4})
 
 
@@ -230,12 +233,12 @@ def _honest_bridge(w):
         calls.append((from_h, to_h))
         return w.set_b
 
-    anchor = w.p.ls.CheckpointVerifier(w.pubkeys).verify_chain(w.rot_ckpt.wire_payload(), w.set_a, bridge=bridge)
+    anchor = w.p.ls.CheckpointVerifier(w.pubkeys, device=False).verify_chain(w.rot_ckpt.wire_payload(), w.set_a, bridge=bridge)
     return anchor, calls
 
 
 def _multipair_parity(w):
-    lanes, _records, _anchor = w.p.ls.CheckpointVerifier(w.pubkeys).build_lanes(
+    lanes, _records, _anchor = w.p.ls.CheckpointVerifier(w.pubkeys, device=False).build_lanes(
         w.static_ckpt.wire_payload(include_all=True), w.set_a)
     msg, points, pubkeys = lanes[2]
     lanes = lanes[:2] + [(w.p.keccak.keccak256(b"not the digest"), points, pubkeys)] + lanes[3:]
@@ -249,35 +252,35 @@ def _structural(w, epochs=1000):
     ck = w.p.ls.Checkpointer(1000, lambda _h: w.set_a, signers=w.bls, lazy_sign=True)
     for e in range(1, epochs + 1):
         ck.on_finalize(e * 1000, w.p.keccak.keccak256(b"1m blk %d" % e))
-    return w.p.ls.CheckpointVerifier(w.pubkeys).verify_chain(ck.wire_payload(), w.set_a)
+    return w.p.ls.CheckpointVerifier(w.pubkeys, device=False).verify_chain(ck.wire_payload(), w.set_a)
 
 
 CHAIN_CASES = {
-    "static_skip_path": lambda w: w.p.ls.CheckpointVerifier(w.pubkeys).verify_chain(w.static_ckpt.wire_payload(), w.set_a),
-    "static_linear": lambda w: w.p.ls.CheckpointVerifier(w.pubkeys).verify_chain(w.static_ckpt.wire_payload(include_all=True), w.set_a),
+    "static_skip_path": lambda w: w.p.ls.CheckpointVerifier(w.pubkeys, device=False).verify_chain(w.static_ckpt.wire_payload(), w.set_a),
+    "static_linear": lambda w: w.p.ls.CheckpointVerifier(w.pubkeys, device=False).verify_chain(w.static_ckpt.wire_payload(include_all=True), w.set_a),
     "structural_million": _structural,
     "multipair_oracle_parity": _multipair_parity,
-    "short_power_bitmap": lambda w: w.p.ls.CheckpointVerifier(w.pubkeys).verify_chain(
+    "short_power_bitmap": lambda w: w.p.ls.CheckpointVerifier(w.pubkeys, device=False).verify_chain(
         _doctor_head(w, w.static_ckpt.wire_payload(), bitmap=bytes([0b0011])), w.set_a),
-    "bitmap_bit_outside_set": lambda w: w.p.ls.CheckpointVerifier(w.pubkeys).verify_chain(
+    "bitmap_bit_outside_set": lambda w: w.p.ls.CheckpointVerifier(w.pubkeys, device=False).verify_chain(
         _doctor_head(w, w.static_ckpt.wire_payload(), bitmap=bytes([0b10111])), w.set_a),
-    "unregistered_signer": lambda w: w.p.ls.CheckpointVerifier(lambda _h: {}).verify_chain(w.static_ckpt.wire_payload(), w.set_a),
-    "replayed_record": lambda w: w.p.ls.CheckpointVerifier(w.pubkeys).verify_chain(
+    "unregistered_signer": lambda w: w.p.ls.CheckpointVerifier(lambda _h: {}, device=False).verify_chain(w.static_ckpt.wire_payload(), w.set_a),
+    "replayed_record": lambda w: w.p.ls.CheckpointVerifier(w.pubkeys, device=False).verify_chain(
         dict(w.static_ckpt.wire_payload(), checkpoints=w.static_ckpt.wire_payload()["checkpoints"][:-1]
              + [w.static_ckpt.wire_payload()["checkpoints"][1]]), w.set_a),
-    "mislabeled_height": lambda w: w.p.ls.CheckpointVerifier(w.pubkeys).verify_chain(
+    "mislabeled_height": lambda w: w.p.ls.CheckpointVerifier(w.pubkeys, device=False).verify_chain(
         _doctor_head(w, w.static_ckpt.wire_payload(), height=6), w.set_a),
-    "forged_head": lambda w: w.p.ls.CheckpointVerifier(w.pubkeys).verify_chain(
+    "forged_head": lambda w: w.p.ls.CheckpointVerifier(w.pubkeys, device=False).verify_chain(
         _doctor_head(w, w.static_ckpt.wire_payload(), chain_commitment=w.p.keccak.keccak256(b"forked chain")), w.set_a),
-    "rotation_without_bridge": lambda w: w.p.ls.CheckpointVerifier(w.pubkeys).verify_chain(w.rot_ckpt.wire_payload(), w.set_a),
+    "rotation_without_bridge": lambda w: w.p.ls.CheckpointVerifier(w.pubkeys, device=False).verify_chain(w.rot_ckpt.wire_payload(), w.set_a),
     "honest_bridge": _honest_bridge,
     "lying_bridge": _lying_bridge,
-    "bad_version": lambda w: w.p.ls.CheckpointVerifier(w.pubkeys).verify_chain(dict(w.static_ckpt.wire_payload(), version=99), w.set_a),
-    "bad_spacing": lambda w: w.p.ls.CheckpointVerifier(w.pubkeys).verify_chain(dict(w.static_ckpt.wire_payload(), spacing=0), w.set_a),
-    "no_records": lambda w: w.p.ls.CheckpointVerifier(w.pubkeys).verify_chain(dict(w.static_ckpt.wire_payload(), checkpoints=[]), w.set_a),
-    "not_genesis_first": lambda w: w.p.ls.CheckpointVerifier(w.pubkeys).verify_chain(
+    "bad_version": lambda w: w.p.ls.CheckpointVerifier(w.pubkeys, device=False).verify_chain(dict(w.static_ckpt.wire_payload(), version=99), w.set_a),
+    "bad_spacing": lambda w: w.p.ls.CheckpointVerifier(w.pubkeys, device=False).verify_chain(dict(w.static_ckpt.wire_payload(), spacing=0), w.set_a),
+    "no_records": lambda w: w.p.ls.CheckpointVerifier(w.pubkeys, device=False).verify_chain(dict(w.static_ckpt.wire_payload(), checkpoints=[]), w.set_a),
+    "not_genesis_first": lambda w: w.p.ls.CheckpointVerifier(w.pubkeys, device=False).verify_chain(
         dict(w.static_ckpt.wire_payload(), checkpoints=w.static_ckpt.wire_payload()["checkpoints"][1:]), w.set_a),
-    "empty_trust": lambda w: w.p.ls.CheckpointVerifier(w.pubkeys).verify_chain(w.static_ckpt.wire_payload(), {}),
+    "empty_trust": lambda w: w.p.ls.CheckpointVerifier(w.pubkeys, device=False).verify_chain(w.static_ckpt.wire_payload(), {}),
 }
 
 
@@ -385,7 +388,7 @@ def test_wal_checkpoint_records_identical_and_replay_across_packages(worlds, tmp
             restarted = w.p.ls.Checkpointer(2, lambda _h: w.set_a)  # no signing keys at all
             restarted.restore(state.checkpoints)
             assert restarted.latest_epoch == 4
-            assert w.p.ls.CheckpointVerifier(w.pubkeys).verify_chain(restarted.wire_payload(), w.set_a).epoch == 4
+            assert w.p.ls.CheckpointVerifier(w.pubkeys, device=False).verify_chain(restarted.wire_payload(), w.set_a).epoch == 4
 
 
 def test_wal_torn_checkpoint_tail_recovers_and_rebuilds(worlds, tmp_path):
@@ -480,7 +483,7 @@ def checkpoint_api(worlds):
             return [b for b in w.rot_chain if start <= b.height <= end]
 
     source = _ListSource()
-    proofs = p.serve.ProofServer(p.serve.ProofBuilder(source, w.validators), p.serve.ProofCache(chunk_heights=4))
+    proofs = p.serve.ProofServer(p.serve.ProofBuilder(source, w.validators), p.serve.ProofCache(chunk_heights=4), **w.host)
     api = p.api.ProofApiServer(proofs, source.latest_height, port=0, checkpoints_fn=w.rot_ckpt.wire_payload)
     api.start()
     yield api
@@ -501,7 +504,7 @@ def test_http_cold_sync_through_the_ports_api(worlds, checkpoint_api, target):
     rotation by a commitment-enforced bridge proof."""
     reports = {}
     for pkg, w in worlds.items():
-        client = w.p.ls.CheckpointClient(checkpoint_api.url, w.pubkeys)
+        client = w.p.ls.CheckpointClient(checkpoint_api.url, w.pubkeys, device=False)
         reports[pkg] = _report_view(client.cold_sync(w.set_a, target=target))
     assert reports[PORT] == reports[JAX]
     r = reports[PORT]
@@ -514,22 +517,51 @@ def test_http_cold_sync_through_the_ports_api(worlds, checkpoint_api, target):
         assert (r["anchor_height"], r["pairing_dispatches"], r["powers"]) == (0, 0, worlds[PORT].set_a)
 
 
-def test_http_cold_sync_device_route(worlds, checkpoint_api):
+def test_http_cold_sync_device_route(worlds, checkpoint_api, monkeypatch):
     """The cold sync with ``device=True`` on the port's device route
-    (``torch_device="cpu"``) gives the host route's report."""
+    (``torch_device="cpu"``) gives the host route's report, and its bridge
+    and tail proofs' seal lanes go through the dispatcher's device route
+    (the digest and recovery kernels' plain versions here)."""
     w = worlds[PORT]
+    dispatch = importlib.import_module(f"{PORT}.sched.dispatch")
+    seal_lanes = []
+    real = dispatch.CoalescedDispatcher._device
+
+    def counting(self, msgs, lanes, owners):
+        seal_lanes.append(len(lanes))
+        return real(self, msgs, lanes, owners)
+
+    monkeypatch.setattr(dispatch.CoalescedDispatcher, "_device", counting)
     device = w.p.ls.CheckpointClient(checkpoint_api.url, w.pubkeys, device=True, torch_device="cpu")
-    host = w.p.ls.CheckpointClient(checkpoint_api.url, w.pubkeys)
-    assert _report_view(device.cold_sync(w.set_a)) == _report_view(host.cold_sync(w.set_a))
+    host = w.p.ls.CheckpointClient(checkpoint_api.url, w.pubkeys, device=False)
+    got = _report_view(device.cold_sync(w.set_a, target=14))
+    on_device = sum(seal_lanes)
+    assert got == _report_view(host.cold_sync(w.set_a, target=14))
+    assert sum(seal_lanes) == on_device > 0  # the host route dispatched nothing
+
+
+def test_read_plane_entry_points_default_to_the_card(worlds):
+    """``CheckpointClient``, ``CheckpointVerifier``, ``ProofVerifier`` and
+    ``ProofServer`` run on the card unless asked for the host: without one
+    they raise, and nothing drops quietly to the CPU."""
+    w = worlds[PORT]
+    for make in (
+        lambda: w.p.ls.CheckpointClient("http://127.0.0.1:1", w.pubkeys),
+        lambda: w.p.ls.CheckpointVerifier(w.pubkeys),
+        lambda: w.p.serve.ProofVerifier(),
+        lambda: w.p.serve.ProofServer(None),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
 
 
 def test_wire_splice_attack_dies_at_commitment_check(worlds, checkpoint_api):
     for pkg, w in worlds.items():
-        client = w.p.ls.CheckpointClient(checkpoint_api.url, w.pubkeys)
+        client = w.p.ls.CheckpointClient(checkpoint_api.url, w.pubkeys, device=False)
         payload, _n = client.fetch_proof(8, 16)
         spliced = json.loads(json.dumps(payload["proof"]))
         spliced["diffs"].append({"height": 15, "added": {"ab" * 20: 1000}, "removed": []})
-        verifier = w.p.serve.ProofVerifier(require_commitments=True)
+        verifier = w.p.serve.ProofVerifier(require_commitments=True, **w.host)
         with pytest.raises(w.p.serve.ProofError, match="next-set root"):
             verifier.verify(w.p.serve.FinalityProof.from_wire(spliced), w.set_a)
         verifier.verify(w.p.serve.FinalityProof.from_wire(payload["proof"]), w.set_a)
@@ -537,7 +569,7 @@ def test_wire_splice_attack_dies_at_commitment_check(worlds, checkpoint_api):
 
 def test_checkpoints_endpoint_wire_behaviors(worlds, checkpoint_api):
     w = worlds[PORT]
-    client = w.p.ls.CheckpointClient(checkpoint_api.url, w.pubkeys)
+    client = w.p.ls.CheckpointClient(checkpoint_api.url, w.pubkeys, device=False)
     payload, _n = client.fetch_checkpoints(target_epoch=2)
     assert [r.epoch for r in w.decoded(payload)] == [1, 2]
     assert payload["latest_epoch"] == 4 and payload["head"] == 16

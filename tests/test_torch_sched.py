@@ -654,7 +654,7 @@ def test_pack_sender_digest_rows_digests_and_oversize_payload():
     def upload(_name, a):
         return torch.from_numpy(tb._as_signed(a))
 
-    zw, rr, ss, vv, claimed, live = tb.pack_sender_digest_rows(msgs, cache=cache, upload=upload)
+    zw, rr, ss, vv, claimed, live = tb.pack_sender_digest_rows(tb.pack_sender_lanes(msgs, cache=cache), upload)
     digests = m(PORT, "crypto.keccak").keccak256_many([msg.encode(include_signature=False) for msg in msgs])
     want = np.stack([np.frombuffer(d, ">u4")[::-1].astype(np.uint32) for d in digests]).view(np.int32)
     np.testing.assert_array_equal(zw[: len(msgs)].numpy(), want)
@@ -667,7 +667,7 @@ def test_pack_sender_digest_rows_digests_and_oversize_payload():
         np.testing.assert_array_equal(got.numpy(), np.asarray(want_arr).view(got.numpy().dtype))
     assert all(cache.lookup(msg) is not None for msg in msgs)  # fresh packs stored
     # A second call serves every lane from the cache, with the same rows.
-    again = tb.pack_sender_digest_rows(msgs, cache=cache, upload=upload)
+    again = tb.pack_sender_digest_rows(tb.pack_sender_lanes(msgs, cache=cache), upload)
     for a, b in zip(again, (zw, rr, ss, vv, claimed, live)):
         assert torch.equal(a, b)
 
@@ -679,9 +679,9 @@ def test_device_verifier_upload_goes_through_pack_sender_digest_rows(monkeypatch
     calls = []
     real = tb.pack_sender_digest_rows
 
-    def counting(*a, **kw):
-        calls.append(kw.get("lanes"))
-        return real(*a, **kw)
+    def counting(lanes, upload):
+        calls.append(lanes)
+        return real(lanes, upload)
 
     monkeypatch.setattr(tb, "pack_sender_digest_rows", counting)
     r = _round(PORT, 4, 11)
@@ -799,3 +799,68 @@ def test_shed_under_backpressure_stays_on_the_card():
     with sched:
         assert h.verify_senders(r.prepares).all()
     assert sched.stats()["tenants"]["a"]["shed_lanes"] == 4 and sched.stats()["flush_faults"] == 0
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+def test_unregistered_tenant_in_flight_raises_on_the_card_only(device):
+    """A request queued when its tenant is unregistered is a refusal, not
+    a shed: on the card it raises in the caller's thread; off the card the
+    oracle serves it, as in the JAX package.  Both count it."""
+    sched_mod = m(PORT, "sched")
+    r = _round(PORT, 4, 11, 0.25)
+    src = _src(PORT, 11, 4)
+    sched = sched_mod.TenantScheduler(window_s=0.001, dispatcher=_FaultyDispatcher(device))
+    h = sched.register("a", src)
+    assert sched.on_card == (device == "cuda")
+    sched._running = True  # accepts submissions; no flush thread selects them
+    got = {}
+
+    def call():
+        try:
+            got["mask"] = h.verify_committed_seals(r.proposal_hash, r.seals, 1)
+        except BaseException as err:  # noqa: BLE001 - read below
+            got["error"] = err
+
+    t = threading.Thread(target=call)
+    t.start()
+    deadline = time.monotonic() + 5.0
+    while not sched._tenants["a"].queue and time.monotonic() < deadline:
+        time.sleep(0.005)
+    assert sched._tenants["a"].queue, "the request never queued"
+    sched.unregister("a")
+    t.join(5.0)
+    assert not t.is_alive()
+    sched._running = False
+    if device == "cuda":
+        assert isinstance(got.get("error"), sched_mod.SchedRefused), got
+    else:
+        np.testing.assert_array_equal(got["mask"], r.expected_seal_mask)
+    stats = sched.stats()
+    assert stats["refusals"] == 1 and stats["flush_faults"] == 0 and stats["dispatches"] == 0
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+@pytest.mark.parametrize("closed", ["stopped_scheduler", "draining_tenant"])
+def test_refused_submission_raises_on_the_card_only(device, closed):
+    """A submission refused for the lifecycle (a stopped scheduler, a
+    draining tenant): on the card it raises, off the card the oracle
+    serves it and it counts as a shed, as in the JAX package."""
+    sched_mod = m(PORT, "sched")
+    r = _round(PORT, 4, 11, 0.25)
+    sched = sched_mod.TenantScheduler(window_s=0.001, dispatcher=_FaultyDispatcher(device))
+    h = sched.register("a", _src(PORT, 11, 4))
+    if closed == "draining_tenant":
+        sched._running = True
+        sched._tenants["a"].draining = True
+    try:
+        if device == "cuda":
+            with pytest.raises(sched_mod.SchedRefused):
+                h.verify_seal_lanes([(r.proposal_hash, s) for s in r.seals], 1)
+        else:
+            mask = h.verify_seal_lanes([(r.proposal_hash, s) for s in r.seals], 1)
+            np.testing.assert_array_equal(mask, r.expected_seal_mask)
+    finally:
+        sched._running = False
+    stats = sched.stats()
+    assert stats["refusals"] == 1 and stats["flush_faults"] == 0
+    assert stats["tenants"]["a"]["sheds"] == (0 if device == "cuda" else 1)

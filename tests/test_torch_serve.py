@@ -58,6 +58,9 @@ class Chains:
 
     def __init__(self, pkg: str):
         p = self.p = P(pkg)
+        # The port's read plane runs on the card unless asked for its host
+        # route, which is the JAX package's.
+        self.host = {"device": False} if pkg == PORT else {}
         self.keys = [p.crypto.PrivateKey.from_seed(b"serve-%d" % i) for i in range(4)]
         self.rot = [p.crypto.PrivateKey.from_seed(b"serve-rot-%d" % i) for i in range(4)]
         # A backend registers the package's native signing and recovery
@@ -233,7 +236,7 @@ def test_malformed_wire_records_raise_proof_error(chains, case):
 
 def _verify(c, blocks, validators, start, end, trusted_at, **kw):
     proof = c.builder(blocks, validators).build(start, end)
-    return c.p.serve.ProofVerifier(**kw).verify(proof, validators(trusted_at))
+    return c.p.serve.ProofVerifier(**c.host, **kw).verify(proof, validators(trusted_at))
 
 
 def _forged_sealless(c):
@@ -242,7 +245,7 @@ def _forged_sealless(c):
     forged = c.p.serve.FinalityProof(0, [proof.entries[0]] + [
         c.p.serve.ProofEntry(e.height, c.p.wire.Proposal(b"forged %d" % e.height, 0), []) for e in proof.entries[1:]
     ], [poison])
-    return c.p.serve.ProofVerifier().verify(forged, c.static_validators(1))
+    return c.p.serve.ProofVerifier(**c.host).verify(forged, c.static_validators(1))
 
 
 def _walk(c, mutate):
@@ -258,20 +261,20 @@ def _short_bitmap(c):
         bitmap=c.p.qc.AggregateQuorumCertificate.bitmap_of(cert.signer_indices()[:1], 4),
     )
     blocks = [c.bls_blocks[0], c.p.wal.FinalizedBlock(2, c.bls_blocks[1].proposal, [], cert=short)]
-    verifier = c.p.serve.ProofVerifier(bls_keys_for_height=c.bls_keys)
+    verifier = c.p.serve.ProofVerifier(**c.host, bls_keys_for_height=c.bls_keys)
     return outcome(lambda: verifier.verify(c.builder(blocks, c.static_validators).build(0, 2), c.static_validators(1))), verifier.pairings
 
 
 def _relabeled(c):
     other = c.p.wire.Proposal(raw_proposal=b"forged block 2", round=0)
     blocks = [c.bls_blocks[0], c.p.wal.FinalizedBlock(2, other, [], cert=c.cert)]
-    verifier = c.p.serve.ProofVerifier(bls_keys_for_height=c.bls_keys)
+    verifier = c.p.serve.ProofVerifier(**c.host, bls_keys_for_height=c.bls_keys)
     return outcome(lambda: verifier.verify(c.builder(blocks, c.static_validators).build(0, 2), c.static_validators(1))), verifier.pairings
 
 
 def _smuggled(c):
     blocks = [c.bls_blocks[0], c.p.wal.FinalizedBlock(2, c.bls_blocks[1].proposal, list(c.bls_blocks[0].seals), cert=c.cert)]
-    verifier = c.p.serve.ProofVerifier(bls_keys_for_height=c.bls_keys)
+    verifier = c.p.serve.ProofVerifier(**c.host, bls_keys_for_height=c.bls_keys)
     result = outcome(lambda: verifier.verify(c.builder(blocks, c.static_validators).build(0, 2), c.static_validators(1)))
     return result, verifier.pairings, verifier.lanes_verified
 
@@ -284,7 +287,7 @@ def _duplicates(c):
 
 def _truncated(c):
     proof = c.builder(c.two_rotation, c.two_rotation_validators).build(0, 8)
-    verifier = c.p.serve.ProofVerifier()
+    verifier = c.p.serve.ProofVerifier(**c.host)
     trusted = c.static_validators(1)
     verifier.verify(proof, trusted)
     return verifier.verify(c.p.serve.FinalityProof(0, list(proof.entries), [proof.diffs[0]]), trusted)
@@ -296,7 +299,7 @@ OUTCOMES = {
     "quorum_short": lambda c: _verify(c, c.tampered(c.static[:3], {(2, 2), (2, 3)}), c.static_validators, 0, 3, 1),
     "duplicate_seal": _duplicates,
     "rotation": lambda c: _verify(c, c.rotating, c.rotating_validators, 0, 8, 1),
-    "stale_set_splice": lambda c: c.p.serve.ProofVerifier().verify(
+    "stale_set_splice": lambda c: c.p.serve.ProofVerifier(**c.host).verify(
         c.p.serve.FinalityProof(0, list(c.builder(c.rotating, c.rotating_validators).build(0, 8).entries), diffs=[]),
         c.rotating_validators(1)),
     "truncated_diffs": _truncated,
@@ -350,7 +353,7 @@ def test_masks_identical_lane_for_lane_and_equal_the_oracle(chains):
     for pkg, c in chains.items():
         counting = CountingLanes(c.p)
         blocks = c.tampered(c.static[:4], {(h, 3) for h in range(1, 5)})
-        report = c.p.serve.ProofVerifier(lane_verifier=counting).verify(
+        report = c.p.serve.ProofVerifier(**c.host, lane_verifier=counting).verify(
             c.builder(blocks, c.static_validators).build(0, 4), c.static_validators(1))
         assert report["heights"] == 4 and report["lanes"] == 16
         oracle = c.p.verify.HostBatchVerifier(c.static_validators)
@@ -360,7 +363,7 @@ def test_masks_identical_lane_for_lane_and_equal_the_oracle(chains):
         assert not counting.drains[0][1].all()
         bad = c.tampered(c.static[:4], {(1, i) for i in range(4)})
         with pytest.raises(c.p.serve.ProofError, match="height 1"):
-            c.p.serve.ProofVerifier().verify(c.builder(bad, c.static_validators).build(0, 4), c.static_validators(1))
+            c.p.serve.ProofVerifier(**c.host).verify(c.builder(bad, c.static_validators).build(0, 4), c.static_validators(1))
         phash = c.p.backend.proposal_hash_of(bad[0].proposal)
         assert not oracle.verify_seal_lanes([(phash, s) for s in bad[0].seals], 1).any()
     assert drains[PORT] == drains[JAX]
@@ -387,11 +390,34 @@ def test_cert_entries_through_the_ports_device_route(chains, case):
         return outcome(lambda: verifier.verify(c.builder(blocks, c.static_validators).build(0, 2), c.static_validators(1)))
 
     device = run(device=True, torch_device="cpu")
-    assert device == run()
+    assert device == run(device=False)
     if case == "cert_one_pairing":
         assert device[0] == "ok" and device[1]["pairings"] == 1
     else:
         assert device[:2] == ("err", "ProofError") and "failed verification" in device[2]
+
+
+def test_device_route_drains_through_the_dispatcher(chains):
+    """With no scheduler and no lane verifier, the port's device route
+    drains a proof's fresh seal lanes through a ``DispatcherLanes`` (the
+    digest and recovery kernels' plain versions on the CPU): the host
+    route's verdicts, a tampered proof rejected at the same height."""
+    c = chains[PORT]
+    blocks = c.tampered(c.static[:3], {(h, 3) for h in range(1, 4)})
+    bad = c.tampered(c.static[:3], {(2, i) for i in range(4)})
+    device = c.p.serve.ProofVerifier(device=True, torch_device="cpu")
+    assert isinstance(device._verifier, c.p.serve.DispatcherLanes)
+    assert device._verifier.device == torch.device("cpu")
+    results = {}
+    for label, verifier in (("device", device), ("host", c.p.serve.ProofVerifier(device=False))):
+        results[label] = (
+            outcome(lambda v=verifier: v.verify(c.builder(blocks, c.static_validators).build(0, 3), c.static_validators(1))),
+            outcome(lambda v=verifier: v.verify(c.builder(bad, c.static_validators).build(0, 3), c.static_validators(1))),
+        )
+    assert results["device"] == results["host"]
+    assert results["device"][0][0] == "ok" and results["device"][1][:2] == ("err", "ProofError")
+    assert "height 2" in results["device"][1][2]
+    assert device._verifier.dispatcher.routes == {"host": 0, "device": 2}
 
 
 # -- cache and server ----------------------------------------------------------------
@@ -399,7 +425,7 @@ def test_cert_entries_through_the_ports_device_route(chains, case):
 
 def _server(c, blocks=None, validators=None, **kw):
     source = ListSource(blocks or c.static)
-    return c.p.serve.ProofServer(c.p.serve.ProofBuilder(source, validators or c.static_validators), **kw), source
+    return c.p.serve.ProofServer(c.p.serve.ProofBuilder(source, validators or c.static_validators), **c.host, **kw), source
 
 
 SERVER_CASES = {}
@@ -417,7 +443,7 @@ def overlapping_chunks(c):
     calls = source.calls
     p2 = server.get_proof(1, 4)
     assert source.calls == calls and p2.entries[0] is p1.entries[1]
-    c.p.serve.ProofVerifier().verify(p2, c.static_validators(2))
+    c.p.serve.ProofVerifier(**c.host).verify(p2, c.static_validators(2))
     return wire_json(p2), server.cache.stats()["hits"]
 
 
@@ -455,7 +481,7 @@ def sig_cache_dedupes_across_clients(c):
     shared = c.p.serve.SigVerdictCache()
     proof = c.builder(c.static, c.static_validators).build(0, 4)
     for _ in range(2):
-        c.p.serve.ProofVerifier(lane_verifier=counting, sig_cache=shared).verify(proof, c.static_validators(1))
+        c.p.serve.ProofVerifier(**c.host, lane_verifier=counting, sig_cache=shared).verify(proof, c.static_validators(1))
     return sum(len(lanes) for lanes, _ in counting.drains), shared.stats()["hits"]
 
 
