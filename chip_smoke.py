@@ -123,14 +123,31 @@ Phases, in order (any failure exits non-zero and prints no result):
    or failing gate fails the run; the digest and recovery kernels are held
    bit-exact against their plain versions at a mesh shard's and a tick
    shard's shapes;
-13. print the ``kernels`` line (each kernel's ``ms`` is CUDA events over
+13. the validator process on the card (:func:`validator_phase`): (a) two
+   real restarts (``python -m go_ibft_tpu_torch.boot`` children on one
+   fresh kernel build cache, every registry family restored on the card,
+   then one height of a 3-validator cluster verifying on the card): the cold
+   leg pays the ``nvcc`` builds, the cached leg reports zero cold programs
+   and zero compile events; (b) ``ChainRunner.warm_start`` over a WAL of 8
+   finalized 100-validator heights with a scheduler handle on the card: the
+   main path's four families restored, height 8 recovered, a verdict seeded
+   a WAL seal, those seals re-verified with no launch, the kernels held at
+   the registry's inputs; (c) where ``grpc`` imports, 4 ``python -m
+   go_ibft_tpu_torch.node`` processes on the card under ``sim/fleet.py``'s
+   client flood and adversaries: no missed height or diverged chain, every
+   slowloris socket cut, every node's scheduler on the device route with
+   no host-routed flush, fault, refusal or shed, and one ``/profilez``
+   window a node holding recovery or digest kernels; (d) the card probe
+   names this card and its count;
+14. print the ``kernels`` line (each kernel's ``ms`` is CUDA events over
    back-to-back launches; ``device_ms_per_launch`` its time on the card per
    launch, from the profiler; ``launches`` phase 4's count (config #4's for
    the BLS kernels), ``engine_launches`` engine run A's over its 5 heights,
    ``chain_launches`` chain run F's over its 32, ``bls_launches`` one
    config-#4 call's, ``bls_chain_launches_per_height`` phase 10's chain's,
-   ``serving_launches`` phase 11's, ``mesh_launches`` phase 12 (a)'s and
-   ``cluster_launches`` phase 12 (c)'s), then the result line.
+   ``serving_launches`` phase 11's, ``mesh_launches`` phase 12 (a)'s,
+   ``cluster_launches`` phase 12 (c)'s and ``boot_launches`` phase 13
+   (b)'s), then the result line.
 
 ``--digest-only`` runs none of this: it times ``ops.quorum.digest_words``
 and the recovery kernel of whichever ``go_ibft_tpu_torch`` comes first on
@@ -1961,6 +1978,254 @@ def cluster_phase(report: dict, ident: str, counts, holds, rounds: dict, dev=Non
     return launched
 
 
+# -- phase 13: the validator process on the card -------------------------------
+
+# The main path's four registry families (the restriction the boot legs fall
+# back to if their nvcc builds ever push the script near its limit; the legs
+# restore every family today), the in-process warm start's WAL (100
+# validators x 8 finalized heights) and the fleet (4 node processes, 3 gated
+# heights, 64 held client connections: sim/fleet.py's defaults).
+BOOT_MAIN_FAMILIES = ("digest_words_8l", "ecdsa_recover_8l", "round_certify_8l", "quorum_certify_8l")
+WARM_VALIDATORS, WARM_HEIGHTS = 100, 8
+FLEET_NODES, FLEET_HEIGHTS, FLEET_CONNECTIONS = 4, 3, 64
+CARD_KERNELS = ("secp256k1_recover", "keccak256_digest")
+
+
+def validator_phase(report: dict, ident: str, counts, holds, dev=None, small: bool = False) -> dict:
+    """Phase 13: the validator process on the card.
+
+    (a) restart to first finalized, two real restarts: two
+    ``python -m go_ibft_tpu_torch.boot`` children (``boot/restart.py``) on
+    one fresh kernel build cache, each restoring every registry family on
+    the card and then finalizing one height of a 3-validator cluster whose
+    engines verify on the card; the cold leg must report a cold program
+    (its ``nvcc`` builds), the cached leg none and no compile event in its
+    own ledger.  (b) ``ChainRunner.warm_start`` in process: a runner over a
+    WAL of 8 finalized 100-validator heights with a ``TenantScheduler``
+    handle on the card restores the main path's four families, recovers to
+    height 8 and seeds one verdict a WAL seal; those seals then verify with
+    no recovery launch; the digest and recovery kernels are held bit-exact
+    against their plain versions at the registry's inputs.  (c) where
+    ``grpc`` imports: ``sim/fleet.py`` with 4 ``python -m
+    go_ibft_tpu_torch.node`` processes on the card under the client flood
+    and adversaries: no missed height, no diverged chain, every slowloris
+    socket cut, and on every node (its ``/statusz``, then its drain report)
+    device flushes, no host-routed flush, no flush fault, refusal or shed;
+    one ``/profilez`` window per node holds recovery or digest kernels.
+    (d) the card probe (``obs/evidence.py::probe_fingerprint``) names this
+    card and its count.  Times are host clock on the card ``ident`` names.
+    ``dev``/``small`` run the orchestration on the CPU at a small size (the
+    CPU asked for, one family, no chain in the legs, 4 validators, the
+    fleet on the auto route; no count or card gate).  Returns the launch
+    counts of (b)'s warm start per kernel."""
+    import tempfile
+
+    from go_ibft_tpu_torch.bench.workload import _keys
+    from go_ibft_tpu_torch.boot import program_registry
+    from go_ibft_tpu_torch.boot.restart import run_boot_leg
+    from go_ibft_tpu_torch.chain import ChainRunner, WriteAheadLog
+    from go_ibft_tpu_torch.core import IBFT
+    from go_ibft_tpu_torch.crypto import ecdsa
+    from go_ibft_tpu_torch.crypto.backend import ECDSABackend, encode_signature, proposal_hash_of
+    from go_ibft_tpu_torch.messages.helpers import CommittedSeal
+    from go_ibft_tpu_torch.messages.wire import Proposal
+    from go_ibft_tpu_torch.obs.evidence import probe_fingerprint
+    from go_ibft_tpu_torch.ops import quorum
+    from go_ibft_tpu_torch.sched import TenantScheduler
+    from go_ibft_tpu_torch.sim.fleet import FleetSpec, _http_get, run_fleet
+
+    dev = torch.device("cuda", torch.cuda.current_device()) if dev is None else dev
+    card = dev.type == "cuda"
+    reset_counts, read_counts = counts
+    hold_digest, hold_recovery = holds
+    out: dict = {"gpu": ident}
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    # -- (a) two real restarts on one fresh build cache -----------------------
+    with tempfile.TemporaryDirectory(prefix="boot-legs-") as tmp:
+        legs = {}
+        for tag in ("cold", "cached"):
+            legs[tag] = run_boot_leg(
+                tag, "" if card else BOOT_MAIN_FAMILIES[0], os.path.join(tmp, "kernels"),
+                os.path.join(tmp, f"ledger_{tag}.jsonl"), timeout_s=600, cwd=root,
+                device=None if card else "cpu", chain=card,
+            )
+    for tag, leg in legs.items():
+        rep = leg["report"]
+        log(f"[13] a {tag} leg: entry to first finalized {rep['entry_to_first_finalized_ms']:.1f} ms, warm "
+            f"{rep['warm_ms']:.1f} ms, chain {rep['chain_ms']:.1f} ms, spawn to exit {leg['spawn_ms']:.1f} ms; "
+            f"{rep['cold']} cold, {rep['cached']} cached, {rep['skipped']} skipped, {len(leg['events'])} compile "
+            f"events ({rep['platform']}, {ident})")
+        for program, st in rep["programs"].items():
+            log(f"    {program:32s} {st['status']:7s} {st['compile_ms']:10.1f} ms")
+    cold, cached = legs["cold"], legs["cached"]
+    if card:
+        check(cold["report"]["platform"] == "gpu" and cold["report"]["skipped"] == 0, "13a: every family on the card")
+        check(cold["report"]["cold"] >= 1 and len(cold["events"]) >= 1,
+              "13a: the cold leg built its kernels (a cold program, a compile event)")
+        check(cold["report"]["chain_ms"] > 0 and cached["report"]["chain_ms"] > 0,
+              "13a: both legs finalized their first height")
+    check(cached["report"]["cold"] == 0 and cached["events"] == [],
+          "13a: the cached leg: zero cold programs and zero compile events")
+    out["boot_legs"] = {tag: {"spawn_ms": leg["spawn_ms"], "events": len(leg["events"]), **leg["report"]}
+                        for tag, leg in legs.items()}
+
+    # -- (b) ChainRunner.warm_start in process -------------------------------
+    n_val = WARM_VALIDATORS if not small else 4
+    keys = _keys(n_val, 13)
+    src = ECDSABackend.static_validators({k.address: 1 for k in keys})
+    t0 = time.perf_counter()
+    blocks = []
+    with tempfile.TemporaryDirectory(prefix="warm-wal-") as tmp:
+        path = os.path.join(tmp, "wal.jsonl")
+        wal = WriteAheadLog(path)
+        for h in range(1, WARM_HEIGHTS + 1):
+            proposal = Proposal(raw_proposal=b"warm block %d" % h, round=0)
+            phash = proposal_hash_of(proposal)
+            seals = [CommittedSeal(signer=k.address, signature=encode_signature(*ecdsa.sign(k, phash)))
+                     for k in keys]
+            wal.append_finalize(h, proposal, seals)
+            blocks.append((h, phash, seals))
+        wal.close()
+        sign_s = time.perf_counter() - t0
+        sched = TenantScheduler(route="device", torch_device=dev)
+        handle = sched.register("warm", src)
+        runner = ChainRunner(IBFT(None, ECDSABackend(keys[0], src), None, batch_verifier=handle),
+                             WriteAheadLog(path))
+        reset_counts()
+        t0 = time.perf_counter()
+        rep = runner.warm_start(programs=list(BOOT_MAIN_FAMILIES), handle=handle, device=dev)
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        boot_launches = read_counts()
+        runner.wal.close()
+        reset_counts()
+        with sched:
+            for h, phash, seals in blocks:
+                check(bool(handle.verify_committed_seals(phash, seals, h).all()),
+                      f"13b: height {h}'s seeded seals verify")
+        seeded_launches = read_counts()
+    n_seals = WARM_HEIGHTS * n_val
+    log(f"[13] b warm_start: {WARM_HEIGHTS} heights x {n_val} seals signed in {sign_s:.1f} s; restored "
+        f"{ {p: s.status for p, s in rep.programs.items()} } in {warm_ms:.1f} ms, height {rep.height} "
+        f"(chain {runner.latest_height()}), {rep.seeded_seal_verdicts} seal verdicts seeded; launches "
+        f"{boot_launches}; the seeded seals' re-verification launches {seeded_launches} ({ident})")
+    check(runner.latest_height() == WARM_HEIGHTS and rep.height == WARM_HEIGHTS + 1,
+          f"13b: recovered {WARM_HEIGHTS} heights, the next is {WARM_HEIGHTS + 1}")
+    check(rep.seeded_seal_verdicts == n_seals, f"13b: {n_seals} seal verdicts seeded (the WAL's seals)")
+    check(seeded_launches["secp256k1_recover"] == 0 and seeded_launches["keccak256_digest"] == 0,
+          "13b: the seeded seals verify with no recovery or digest launch")
+    if card:
+        check(boot_launches["keccak256_digest"] == 3 and boot_launches["secp256k1_recover"] == 3,
+              "13b: the four main families: 3 digest and 3 recovery launches")
+        check(all(s.status == "cached" for s in rep.programs.values()), "13b: phase 2's libraries: all cached")
+    rargs = program_registry(["round_certify_8l"], device=dev)["round_certify_8l"]()[1]
+    b_blocks, b_counts, zw, r, s, v = main_path_inputs(rargs, quorum)
+    hold_digest(b_blocks, b_counts, "the boot registry's round_certify_8l payloads")
+    hold_recovery((zw, r, s, v), "secp256k1_recover kernel == plain at the boot registry's 16 lanes")
+    z_limbs = program_registry(["ecdsa_recover_8l"], device=dev)["ecdsa_recover_8l"]()[1]
+    hold_recovery(z_limbs, "secp256k1_recover kernel == plain at the boot registry's ecdsa_recover_8l")
+    out["warm_start"] = {"height": rep.height, "seeded": rep.seeded_seal_verdicts, "warm_ms": warm_ms,
+                         "launches": boot_launches, "seeded_launches": seeded_launches}
+
+    # -- (c) the fleet of node processes on the card ---------------------------
+    try:
+        import grpc  # noqa: F401 - the nodes' gossip transport needs it
+    except ImportError as err:
+        out["fleet"] = None
+        log(f"[13] c the fleet did not run: grpc does not import on this machine ({err}); the node's gossip "
+            f"transport (net/grpc_transport.py) needs it")
+    else:
+        def probe_live(infos):
+            """Each node's /statusz, then one /profilez window a node, all
+            at once: a process's first window spends ≈ 12 s starting the
+            profiler on the card (PERF.md §6)."""
+            from concurrent.futures import ThreadPoolExecutor
+
+            status = [_http_get("127.0.0.1", i["telemetry_port"], "/statusz", 60.0) for i in infos]
+            with ThreadPoolExecutor(len(infos)) as pool:
+                profiles = list(pool.map(
+                    lambda i: _http_get("127.0.0.1", i["telemetry_port"], "/profilez?seconds=1.0", 120.0), infos))
+            return [{"status": st, "profile": pr} for st, pr in zip(status, profiles)]
+
+        spec = (FleetSpec(nodes=FLEET_NODES, heights=FLEET_HEIGHTS, connections=FLEET_CONNECTIONS) if card else
+                FleetSpec(nodes=FLEET_NODES, heights=2, connections=8, device="cpu", route="auto",
+                          env={"OMP_NUM_THREADS": "1"}))
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="fleet-") as run_dir:
+            res = run_fleet(spec, run_dir, on_live=probe_live)
+            tails = {}
+            for name in sorted(os.listdir(run_dir)):
+                if name.endswith(".log"):
+                    with open(os.path.join(run_dir, name), "rb") as fh:
+                        tails[name] = fh.read()[-1500:].decode("utf-8", "replace")
+        fleet_s = time.perf_counter() - t0
+        summary = res.summary()
+        log(f"[13] c fleet of {spec.nodes} node processes ({'the card' if card else 'cpu'}) in {fleet_s:.1f} s: "
+            f"{summary}")
+        print(res.replay_line, flush=True)
+        nodes = []
+        for i, live in enumerate(res.live or []):
+            code, status = live["status"]
+            pcode, prof = live["profile"]
+            sched_block = status.get("sched") or {}
+            kernels = {k: n for k, n in (prof.get("kernels") or {}).items()
+                       if any(name in k for name in CARD_KERNELS)}
+            row = {"statusz": sched_block.get("routes"), "profilez": pcode, "kernels": sum(kernels.values()),
+                   "events": prof.get("device_events")}
+            nodes.append(row)
+            tenants = {t: (v["requests"], v["sheds"], v["drain_p99_ms"]) for t, v in
+                       sched_block.get("tenants", {}).items()}
+            log(f"[13] c node {i}: height {status.get('height')} round {status.get('round')} "
+                f"{status.get('state')}; /statusz routes {row['statusz']}, flush faults "
+                f"{sched_block.get('flush_faults')}, refusals {sched_block.get('refusals')}, tenants (requests, "
+                f"sheds, drain p99 ms) {tenants}; /profilez {pcode}, {row['events']} device events, "
+                f"{row['kernels']} recovery/digest kernels {prof.get('error', '')}")
+
+        def gates():
+            check(res.missed_heights == 0 and res.diverged_chains == 0, "13c: no missed height, no diverged chain")
+            check(res.slowloris["opened"] > 0 and res.slowloris["cut_by_server"] == res.slowloris["opened"],
+                  "13c: every slowloris socket cut")
+            check(res.verified_proofs == spec.nodes, "13c: one full-range proof a node verified client-side")
+            check(res.live is not None and len(res.live) == spec.nodes, "13c: every node probed live")
+            for i, (live, drained) in enumerate(zip(res.live, res.reports)):
+                check(bool(drained.get("sched")), f"13c node {i}: a drain report")
+                nodes[i]["drained"] = drained["sched"]["routes"]
+                for sched_block in (live["status"][1]["sched"], drained["sched"]):
+                    check(sched_block.get("flush_faults") == 0 and sched_block.get("refusals") == 0,
+                          f"13c node {i}: no flush fault, no refusal")
+                    check(all(t["shed_lanes"] == 0 for t in sched_block.get("tenants", {}).values()),
+                          f"13c node {i}: no shed lane (no oracle fallback)")
+                    if card:
+                        check(sched_block["routes"]["device"] > 0 and sched_block["routes"]["host"] == 0,
+                              f"13c node {i}: device flushes, no host-routed flush")
+                if card:
+                    check(live["status"][0] == 200 and live["profile"][0] == 200 and nodes[i]["kernels"] > 0,
+                          f"13c node {i}: /profilez holds recovery or digest kernels")
+
+        try:
+            gates()
+        except RuntimeError:
+            for name, text in tails.items():  # the nodes' own account of the failure
+                log(f"[13] c {name}: ...{text}")
+            raise
+        out["fleet"] = {"summary": summary, "nodes": nodes, "replay": res.replay_line, "fleet_s": fleet_s}
+
+    # -- (d) the card probe ----------------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="probe-") as tmp:
+        fp = probe_fingerprint(120.0, reprobe=True, cache_path=os.path.join(tmp, "probe.json"))
+    log(f"[13] d probe: platform {fp.platform}, kind {fp.kind}, {fp.device_count} device(s), probe {fp.probe}, "
+        f"backend {fp.backend_label()}")
+    if card:
+        check(fp.platform == "gpu" and fp.kind == torch.cuda.get_device_name(0)
+              and fp.device_count == torch.cuda.device_count(), "13d: the probe names this card and its count")
+    out["probe"] = {"platform": fp.platform, "kind": fp.kind, "device_count": fp.device_count}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[13] phase 13 took {out['phase_s']:.1f} s ({ident})")
+    report["validator"] = out
+    return boot_launches
+
+
 def digest_only() -> int:
     """Time ``ops.quorum.digest_words`` and the recovery kernel of the
     ``go_ibft_tpu_torch`` first on the import path.  To compare checkouts,
@@ -2607,7 +2872,10 @@ def main() -> int:
     cluster = cluster_phase(report, ident, (reset_counts, read_counts), (hold_digest, hold_recovery),
                             {"100v": (rnd100, src100, verifier100), "300v_30bad": (rnd300, src300, verifier300)})
 
-    # -- 13. the kernels line and the result ---------------------------
+    # -- 13. the validator process on the card --------------------------
+    boot_launches = validator_phase(report, ident, (reset_counts, read_counts), (hold_digest, hold_recovery))
+
+    # -- 14. the kernels line and the result ---------------------------
     main = {"keccak_f1600": timing["keccak_f1600"][256],  # PR 1's main-path size
             "keccak256_digest": timing["keccak256_digest"]["100v"],
             "secp256k1_recover": timing["secp256k1_recover"]["100v"]}
@@ -2635,6 +2903,7 @@ def main() -> int:
         "serving_launches": serving_launches[name],
         "cluster_launches": cluster["cluster"].get(name, 0),
         "mesh_launches": cluster["mesh"].get(name, 0),
+        "boot_launches": boot_launches[name],
         "max_abs_err": err[name],
         "ms": main[name]["ms"],
         "device_ms_per_launch": main[name]["device_ms_per_launch"],
@@ -2649,7 +2918,8 @@ def main() -> int:
                      bls_chain_launches_per_height=entry.pop("chain_launches_per_height"),
                      serving_launches=serving_launches[entry["name"]],
                      cluster_launches=cluster["cluster"].get(entry["name"], 0),
-                     mesh_launches=cluster["mesh"].get(entry["name"], 0))
+                     mesh_launches=cluster["mesh"].get(entry["name"], 0),
+                     boot_launches=boot_launches[entry["name"]])
         kernels.append(entry)
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start

@@ -7,12 +7,16 @@ a plain C interface, loaded with ``ctypes``:
          -Xcompiler -fPIC -Xptxas -v -I csrc \
          -o build/torch_kernels/<name>-<key>.so csrc/<name>.cu
 
-The build happens at first use, into ``build/torch_kernels/`` at the root of
-the checkout, keyed by a hash of the source, of every shared header
-(``csrc/*.cuh``) and of the flags, so a changed source or header rebuilds
-and an unchanged one loads.  :func:`build_all` starts one
-``nvcc`` per source, all at once.  A failed build raises with the
-compiler's output; nothing falls back.
+The build happens at first use, into the kernel build cache
+(:mod:`go_ibft_tpu_torch.utils.buildcache`: ``GO_IBFT_TORCH_CACHE_DIR``, by
+default ``build/torch_kernels/`` at the root of the checkout), keyed by a
+hash of the source, of every shared header (``csrc/*.cuh``) and of the
+flags, so a changed source or header rebuilds and an unchanged one loads.
+:func:`build_all` starts one ``nvcc`` per source, all at once, and reports
+which sources it compiled and which it found built.  Processes that build
+at once stay safe: each compiles to a file of its own and renames it into
+place.  A failed build raises with the compiler's output; nothing falls
+back.
 """
 
 from __future__ import annotations
@@ -23,11 +27,14 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
+
+from .utils.buildcache import resolve_cache_dir
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+BUILD_DIR = Path(resolve_cache_dir())
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),
@@ -91,11 +98,35 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, Path]:
-    """Compile every missing library of ``names`` in parallel; return paths."""
+def source_key() -> str:
+    """One hash over every source's build key (the boot store's
+    fingerprint: a changed source, header or flag makes old sidecars
+    stale)."""
+    h = hashlib.sha256()
+    for name in sorted(SIGNATURES):
+        h.update(_target(name).name.encode())
+    return h.hexdigest()[:16]
+
+
+class BuildResult(dict):
+    """The paths of :func:`build_all`'s libraries (``name -> path``), and
+    what the call did: ``compiled``, the sources it ran ``nvcc`` on, and
+    ``ready``, those whose library it found already built."""
+
+    compiled: Tuple[str, ...] = ()
+    ready: Tuple[str, ...] = ()
+    build_s: float = 0.0
+
+
+def build_all(names: Iterable[str] = tuple(SIGNATURES)) -> BuildResult:
+    """Compile every missing library of ``names`` in parallel; return their
+    paths and what was compiled (:class:`BuildResult`)."""
+    t0 = time.perf_counter()
     names = list(names)
-    targets = {n: _target(n) for n in names}
+    targets = BuildResult((n, _target(n)) for n in names)
     todo = [n for n in names if not targets[n].exists()]
+    targets.compiled = tuple(todo)
+    targets.ready = tuple(n for n in names if n not in todo)
     if todo:
         nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -117,6 +148,7 @@ def build_all(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, Path]:
                 os.replace(tmp, targets[n])  # atomic: readers never see half a file
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    targets.build_s = time.perf_counter() - t0
     return targets
 
 

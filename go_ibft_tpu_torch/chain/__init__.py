@@ -24,7 +24,6 @@ from .runner import (
 from .sync import LoopbackSyncNetwork, SyncClient, SyncError, SyncSource
 from .wal import (
     FinalizedBlock,
-    NotPortedError,
     WalCorruptionError,
     WalLock,
     WalState,
@@ -37,7 +36,6 @@ __all__ = [
     "HANDOFF_MS_KEY",
     "HEIGHT_MS_KEY",
     "LoopbackSyncNetwork",
-    "NotPortedError",
     "OVERLAP_LANES_KEY",
     "SyncClient",
     "SyncError",

@@ -32,15 +32,14 @@ drain.  :class:`ChainRunner` removes all three costs:
   sequence and catches up via one batched seal drain per validator-set
   snapshot.
 
-Two differences from the JAX package.  On the card
+Differences from the JAX package.  On the card
 (:func:`~go_ibft_tpu_torch.verify.batch.on_card` of the engine's verifier)
 a fault of the overlap worker's drain ends :meth:`ChainRunner.run` with
 that fault instead of re-verifying the batch on the host; off the card the
 JAX behaviour stays; so does a certifier's fault on the card, which ends
 :meth:`ChainRunner.run` instead of falling back to a per-seal finalize
-record.  And :meth:`ChainRunner.warm_start`, whose module the port does
-not have yet, raises :class:`~go_ibft_tpu_torch.chain.wal.NotPortedError`
-naming the slice it waits for (boot).
+record.  :meth:`ChainRunner.start_telemetry` also takes the device its
+/profilez profiles.
 """
 
 from __future__ import annotations
@@ -58,7 +57,7 @@ from ..obs import trace
 from ..utils import metrics
 from ..verify.batch import on_card
 from .sync import SyncClient, SyncError
-from .wal import FinalizedBlock, NotPortedError, WriteAheadLog
+from .wal import FinalizedBlock, WriteAheadLog
 
 __all__ = ["ChainRunner", "HANDOFF_MS_KEY", "HEIGHT_MS_KEY", "OVERLAP_LANES_KEY"]
 
@@ -325,12 +324,17 @@ class ChainRunner:
         return self.height
 
     def warm_start(self, **kw):
-        """The JAX package's full warm restore: not ported (raises
-        :class:`NotPortedError`; it needs ``boot.warmstart``)."""
-        raise NotPortedError(
-            "warm_start is not ported: it needs boot.warmstart, which comes "
-            "with the boot slice"
-        )
+        """Full warm restore: built kernels + WAL + verdict caches, all
+        BEFORE the first round opens.  Thin delegation to
+        :func:`go_ibft_tpu_torch.boot.warmstart.warm_start` with this runner
+        — keyword arguments (``programs`` / ``manifest`` / ``handle`` /
+        ``sig_cache`` / ``warmups`` / ``device`` ...) pass through; returns
+        its :class:`~go_ibft_tpu_torch.boot.warmstart.WarmStartReport`.
+        Lazy import so runners that never warm-start pay no boot-package
+        import."""
+        from ..boot.warmstart import warm_start as _warm_start
+
+        return _warm_start(self, **kw)
 
     # -- the height loop -------------------------------------------------
 
@@ -673,6 +677,7 @@ class ChainRunner:
         host: str = "127.0.0.1",
         wedged_after_s: Optional[float] = None,
         extra_status: Optional[dict] = None,
+        profile_device=None,
     ):
         """Mount /metrics, /healthz, /statusz for this node.
 
@@ -685,7 +690,8 @@ class ChainRunner:
         engine's base round timeout + 5s — a full round 0 plus round-
         change slack).  ``extra_status`` maps status keys to zero-arg
         callables merged into /statusz per scrape (mount scheduler or
-        proof-server stats here).  Returns the started
+        proof-server stats here).  ``profile_device`` is where /profilez
+        profiles (``None``: the card).  Returns the started
         :class:`~go_ibft_tpu_torch.obs.httpd.TelemetryServer` (``.port`` holds
         the bound port).
         """
@@ -700,6 +706,7 @@ class ChainRunner:
             ready_fn=self.telemetry_ready,
             host=host,
             port=port,
+            profile_device=profile_device,
         )
         server.start()
         self._telemetry = server

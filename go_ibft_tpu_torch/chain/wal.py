@@ -56,7 +56,6 @@ WAL_APPEND_MS_KEY = ("go-ibft", "latency", "wal_append_ms")
 
 __all__ = [
     "FinalizedBlock",
-    "NotPortedError",
     "WalCorruptionError",
     "WalLock",
     "WalState",
@@ -66,11 +65,6 @@ __all__ = [
 
 class WalCorruptionError(ValueError):
     """An interior (non-tail) WAL record failed to parse."""
-
-
-class NotPortedError(NotImplementedError):
-    """A hook whose module the port does not have yet; the message names
-    the module and the slice that brings it."""
 
 
 @dataclass

@@ -1,6 +1,5 @@
 """Chaos-injection harness: deterministic faults at the engine's seams (the
-port of the JAX package's ``chaos`` package, without its serve-plane
-clients, which come with the serving slice).
+port of the JAX package's ``chaos`` package).
 
 A seed-driven :class:`FaultInjector` produces a replayable fault schedule
 (same seed => byte-identical decisions, the same bytes as the JAX
@@ -15,7 +14,10 @@ already exposes:
 * pipeline dispatch callables (:func:`chaotic_dispatch`);
 * chain-layer hooks — seeded kill -9 points for crash/restart suites
   (:class:`CrashRestart` raising :class:`SimulatedCrash`), recovered via
-  ``ChainRunner.recover()`` WAL replay.
+  ``ChainRunner.recover()`` WAL replay;
+* serve-plane clients — adversarial HTTP clients (connection churn +
+  slowloris) for the multi-process fleet harness
+  (:class:`ChurningClient`/:class:`SlowlorisClient`, :mod:`.clients`).
 
 Any chaos-test failure prints a ``CHAOS-REPLAY`` line with the seed and
 schedule digest (:func:`replay_on_failure`).  The degraded-mode machinery
@@ -23,6 +25,12 @@ these faults exercise lives in :mod:`go_ibft_tpu_torch.verify` (quarantine
 bisection and the circuit breaker, on a device rung off the card).
 """
 
+from .clients import (
+    ChurningClient,
+    SlowlorisClient,
+    client_schedule_digest,
+    fleet_replay_line,
+)
 from .injector import (
     FaultConfig,
     FaultInjector,
@@ -43,6 +51,10 @@ from .wrappers import (
 )
 
 __all__ = [
+    "ChurningClient",
+    "SlowlorisClient",
+    "client_schedule_digest",
+    "fleet_replay_line",
     "CrashRestart",
     "SimulatedCrash",
     "FaultConfig",

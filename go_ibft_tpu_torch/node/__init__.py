@@ -1,12 +1,25 @@
-"""The validator process's ported parts (the port of the JAX package's
+"""The deployable validator process (the port of the JAX package's
 ``node``).
 
-Only the proof API is ported: :class:`ProofApiServer`, the read plane's
-HTTP transport (``GET /head``, ``/proof`` and ``/checkpoints``).  The
-validator process itself (``node.py``, ``config.py``, ``__main__.py``)
-waits for the socket gossip transport (``net/grpc_transport.py``).
+``python -m go_ibft_tpu_torch.node --config node.toml`` boots one
+validator: socket-native consensus gossip (:mod:`go_ibft_tpu_torch.net`'s
+``GrpcTransport``), WAL-backed chain (:mod:`go_ibft_tpu_torch.chain`),
+QoS-tiered verification on the card (:mod:`go_ibft_tpu_torch.sched`), the
+proof-API wire transport (:mod:`go_ibft_tpu_torch.serve` over
+:mod:`.proof_api`), telemetry with the liveness/readiness split
+(:mod:`go_ibft_tpu_torch.obs.httpd`), and graceful SIGTERM drain.
 """
 
+from .config import NodeConfig, NodeConfigError, load_config, parse_toml_subset
+from .node import ValidatorNode, build_block_fn
 from .proof_api import ProofApiServer
 
-__all__ = ["ProofApiServer"]
+__all__ = [
+    "NodeConfig",
+    "NodeConfigError",
+    "ProofApiServer",
+    "ValidatorNode",
+    "build_block_fn",
+    "load_config",
+    "parse_toml_subset",
+]

@@ -2,9 +2,10 @@
 cost ledger (:mod:`.ledger`), clock offsets (:mod:`.clock`), the Chrome-trace
 export (:mod:`.export`), the timeline reconstruction (:mod:`.timeline`), the
 Prometheus text (:mod:`.metrics_export`), the telemetry endpoints
-(:mod:`.httpd`) and the regression and SLO gates (:mod:`.gates`): copies of
-the JAX package's modules of the same names.  Its device profiler and
-evidence capture are not ported yet, and /profilez answers 501."""
+(:mod:`.httpd`), the regression and SLO gates (:mod:`.gates`), the device
+profiler behind /profilez (:mod:`.devprof`, a ``torch.profiler`` window) and
+the hang-proof card probe with its evidence writer (:mod:`.evidence`): the
+counterparts of the JAX package's modules of the same names."""
 
 from . import clock, ledger, trace
 from .export import to_chrome_trace, write_chrome_trace

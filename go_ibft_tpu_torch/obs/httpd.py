@@ -1,6 +1,5 @@
 """Zero-dependency telemetry HTTP endpoints: /metrics, /healthz, /readyz,
-/statusz (a copy of the JAX package's ``obs/httpd.py``; its /profilez is
-not ported).
+/statusz, /profilez (a copy of the JAX package's ``obs/httpd.py``).
 
 Stdlib ``http.server`` only, like everything else in this repo — a
 :class:`TelemetryServer` binds a ``ThreadingHTTPServer`` on localhost (or
@@ -25,9 +24,15 @@ a given host) and serves:
   ``dropped`` — whatever the mounting component provides), plus a
   ``cost_ledger`` block (dispatch/occupancy/compile totals) whenever the
   runtime cost ledger is on;
-* ``GET /profilez`` — the JAX package's on-demand device-profiler window.
-  Not ported: it answers 501 "not ported" until the device profiler
-  (``obs/devprof.py``) becomes a ``torch.profiler`` capture.
+* ``GET /profilez?seconds=0.5`` — an on-demand ``torch.profiler`` window
+  (:mod:`go_ibft_tpu_torch.obs.devprof`) on the server's
+  ``profile_device`` (``None``: the card): captures the device's activity
+  for the given window and returns the trace path + host-clock anchor,
+  ready for ``obs/timeline.py::merge_device_trace``.  409 when a window is
+  already open, 503 when the profiler is unavailable or recorded nothing
+  on the device.  The ONLY non-read-only endpoint — it writes a trace file
+  to a temp dir, never touches consensus state.  (``profile_device`` is
+  the port's addition: the JAX package's profiler picks its own backend.)
 
 Endpoints are default-off: nothing in the hot path starts a server;
 ``ChainRunner.start_telemetry`` (or an embedder) mounts one explicitly,
@@ -41,7 +46,9 @@ import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Optional, Tuple
+from urllib.parse import parse_qs
 
+from ..utils.device import DeviceLike
 from . import metrics_export
 from . import ledger as cost_ledger
 
@@ -58,9 +65,10 @@ class _Handler(BaseHTTPRequestHandler):
     status_fn: Optional[StatusFn] = None
     health_fn: Optional[HealthFn] = None
     ready_fn: Optional[ReadyFn] = None
+    profile_device: DeviceLike = None
 
     def do_GET(self) -> None:  # noqa: N802 - http.server API
-        path = self.path.partition("?")[0]
+        path, _, query = self.path.partition("?")
         try:
             if path == "/metrics":
                 body = metrics_export.render_prometheus().encode("utf-8")
@@ -88,7 +96,7 @@ class _Handler(BaseHTTPRequestHandler):
                 payload.setdefault("cost_ledger", cost_ledger.status())
                 self._reply_json(200, payload)
             elif path == "/profilez":
-                self._profilez()
+                self._profilez(query)
             else:
                 self._reply_json(404, {"error": "not found", "path": path})
         except Exception as err:  # noqa: BLE001 - a scrape must never crash
@@ -98,13 +106,24 @@ class _Handler(BaseHTTPRequestHandler):
             except OSError:
                 pass  # client went away mid-error: nothing left to do
 
-    def _profilez(self) -> None:
-        """The device-profiler window: not ported (see module docstring)."""
-        self._reply_json(
-            501,
-            {"ok": False, "error": "not ported: /profilez waits for the "
-             "torch.profiler capture of obs/devprof.py"},
-        )
+    def _profilez(self, query: str) -> None:
+        """On-demand device-profiler window (see module docstring)."""
+        from . import devprof
+
+        params = parse_qs(query)
+        try:
+            seconds = float(params.get("seconds", ["0.5"])[0])
+        except ValueError:
+            self._reply_json(400, {"error": "seconds must be a number"})
+            return
+        result = devprof.capture(seconds, device=self.profile_device)
+        if result.get("ok"):
+            code = 200
+        elif str(result.get("error", "")).startswith("busy"):
+            code = 409
+        else:
+            code = 503
+        self._reply_json(code, result)
 
     def _reply(self, code: int, content_type: str, body: bytes) -> None:
         self.send_response(code)
@@ -140,6 +159,7 @@ class TelemetryServer:
         ready_fn: Optional[ReadyFn] = None,
         host: str = "127.0.0.1",
         port: int = 0,
+        profile_device: DeviceLike = None,
     ) -> None:
         self._host = host
         self._want_port = port
@@ -153,7 +173,8 @@ class TelemetryServer:
             (_Handler,),
             {"status_fn": staticmethod(status_fn) if status_fn else None,
              "health_fn": staticmethod(health_fn) if health_fn else None,
-             "ready_fn": staticmethod(ready_fn) if ready_fn else None},
+             "ready_fn": staticmethod(ready_fn) if ready_fn else None,
+             "profile_device": profile_device},
         )
 
     def start(self) -> int:

@@ -1,5 +1,5 @@
 """Cluster-scale lock-step simulation (the port of the JAX package's
-``sim`` package, without ``sim/fleet.py``'s multi-process fleet).
+``sim`` package).
 
 ``ClusterSim`` mounts N IBFT engines on one
 :class:`~go_ibft_tpu_torch.net.ici.IciLockstepTransport` hub and steps them
@@ -9,6 +9,8 @@ comparison point.  ``ChaosMask`` fuses the chaos plane in as seeded tensor
 masks on the collective schedule; ``AdversaryMix`` mounts scripted
 Byzantine strategies on the same seeded schedule, and ``InvariantMonitor``
 checks the safety/liveness properties the whole stack promises.
+``run_fleet`` (:mod:`.fleet`) leaves the process: N real validator
+processes over real sockets under a seeded client flood.
 """
 
 from .adversary import (
@@ -32,6 +34,14 @@ from .cluster import (
     LoopbackClusterSim,
     run_matched_pair,
 )
+from .fleet import (
+    ConnectionFleet,
+    FleetResult,
+    FleetSpec,
+    alloc_ports,
+    build_fleet_configs,
+    run_fleet,
+)
 from .invariants import InvariantMonitor, Violation
 
 __all__ = [
@@ -40,6 +50,9 @@ __all__ = [
     "ChaosMask",
     "ClusterResult",
     "ClusterSim",
+    "ConnectionFleet",
+    "FleetResult",
+    "FleetSpec",
     "CommitWithholder",
     "EquivocatingProposer",
     "InvariantMonitor",
@@ -51,9 +64,12 @@ __all__ = [
     "TreePoisoner",
     "Violation",
     "WAN_PRESETS",
+    "alloc_ports",
+    "build_fleet_configs",
     "cluster_replay_line",
     "max_adversaries",
     "parse_replay_line",
+    "run_fleet",
     "run_matched_pair",
     "sim_address",
     "sim_block",

@@ -8,10 +8,9 @@ masks, the blocks a catch-up returns, its drain count and every
 ``tests/test_chain_sync.py`` in virtual time (``test_torch_chain``'s
 harness): a stranded node catches up through one batched drain, and a node
 killed right after its WAL lock append restarts through ``recover()`` with
-the lock and rejoins the same chain as in the JAX package.  The certificate
-and checkpoint hooks take the working route; ``warm_start``, whose module
-the port does not have yet, raises ``NotPortedError`` with the slice it
-waits for.
+the lock and rejoins the same chain as in the JAX package.  The certificate,
+checkpoint and boot hooks take the working route (``warm_start`` delegates
+to ``boot.warmstart`` as the JAX runner does).
 """
 
 import asyncio
@@ -246,14 +245,13 @@ def test_certificate_hooks_raise_not_ported(tmp_path):
 
 
 def test_checkpoint_and_boot_hooks_raise_not_ported(tmp_path):
-    """The checkpoint hooks this test pinned as not ported while lightsync
-    was missing now take the working route, as in the JAX package: a WAL
-    writes the same epoch checkpoint records byte for byte as the JAX
-    package's, each package replays the other's file (first write wins),
-    and a ``ChainRunner`` takes a ``checkpointer``.  ``warm_start`` still
-    raises ``NotPortedError`` naming the boot slice."""
-    from go_ibft_tpu_torch.chain import NotPortedError
-
+    """The checkpoint and boot hooks this test pinned as not ported (the
+    name is from then) take the working route, as in the JAX package: a
+    WAL writes the same epoch checkpoint records byte for byte as the JAX
+    package's, each package replays the other's file (first write wins), a
+    ``ChainRunner`` takes a ``checkpointer``, and ``warm_start`` delegates
+    to ``boot.warmstart``: on the same WAL it recovers to the JAX runner's
+    height with the same restored programs (none asked for)."""
     m = pkg(PACKAGES[0])
     powers = {bytes([i]) * 20: 1 for i in range(1, 5)}
     files = {}
@@ -283,10 +281,19 @@ def test_checkpoint_and_boot_hooks_raise_not_ported(tmp_path):
     def engine():
         return m.core.IBFT(None, m.cb.ECDSABackend(keys[0], src), None)
 
+    warm = {}
+    for name in PACKAGES:
+        p = pkg(name)
+        pkeys = [p.crypto.PrivateKey.from_seed(b"torch-hooks-%d" % i) for i in range(4)]
+        psrc = p.cb.ECDSABackend.static_validators({k.address: 1 for k in pkeys})
+        engine_p = p.core.IBFT(None, p.cb.ECDSABackend(pkeys[0], psrc), None)
+        runner = p.chain.ChainRunner(engine_p, p.chain.WriteAheadLog(str(tmp_path / f"{name}.jsonl")))
+        kw = {"device": "cpu"} if name == PACKAGES[0] else {}
+        report = runner.warm_start(programs=[], **kw)  # the checkpoint-only WAL written above
+        warm[name] = (report.height, report.programs, report.seeded_seal_verdicts, runner.height)
+        runner.wal.close()
+    assert warm[PACKAGES[0]] == warm[PACKAGES[1]] == (1, {}, 0, 1)
     wal = m.chain.WriteAheadLog(str(tmp_path / "port-hooks.jsonl"))
-    runner = m.chain.ChainRunner(engine(), wal)
-    with pytest.raises(NotPortedError, match="boot.warmstart.*boot slice"):
-        runner.warm_start()
     checkpointer = object()
     assert m.chain.ChainRunner(engine(), wal, checkpointer=checkpointer).checkpointer is checkpointer
     wal.close()

@@ -337,10 +337,23 @@ CLUSTER_SLICE_MODULES = (
 )
 
 
+# The deployment slice's modules: the boot layer, the validator process,
+# its gossip transport, the fleet harness with its chaos clients, the
+# device profiler, the evidence capture and the card probe.
+DEPLOY_SLICE_MODULES = (
+    "go_ibft_tpu_torch.boot", "go_ibft_tpu_torch.boot.__main__", "go_ibft_tpu_torch.boot.aot",
+    "go_ibft_tpu_torch.boot.registry", "go_ibft_tpu_torch.boot.restart", "go_ibft_tpu_torch.boot.warmstart",
+    "go_ibft_tpu_torch.node.node", "go_ibft_tpu_torch.node.config", "go_ibft_tpu_torch.node.__main__",
+    "go_ibft_tpu_torch.net.grpc_transport", "go_ibft_tpu_torch.sim.fleet", "go_ibft_tpu_torch.chaos.clients",
+    "go_ibft_tpu_torch.obs.devprof", "go_ibft_tpu_torch.obs.evidence", "go_ibft_tpu_torch.utils.probe",
+    "go_ibft_tpu_torch.utils.buildcache", "go_ibft_tpu_torch.bench.evidence",
+)
+
+
 def test_port_imports_nothing_of_jax():
     """A fresh interpreter where ``import jax`` fails imports every module
-    of ``go_ibft_tpu_torch``, the chain, BLS, serving and cluster slices'
-    among them; no ``go_ibft_tpu`` module gets loaded."""
+    of ``go_ibft_tpu_torch``, the chain, BLS, serving, cluster and
+    deployment slices' among them; no ``go_ibft_tpu`` module gets loaded."""
     root = Path(__file__).resolve().parent.parent
     code = """
 import importlib, pkgutil, sys
@@ -362,6 +375,7 @@ print(" ".join(names))
     assert set(BLS_SLICE_MODULES) <= names, set(BLS_SLICE_MODULES) - names
     assert set(SERVING_SLICE_MODULES) <= names, set(SERVING_SLICE_MODULES) - names
     assert set(CLUSTER_SLICE_MODULES) <= names, set(CLUSTER_SLICE_MODULES) - names
+    assert set(DEPLOY_SLICE_MODULES) <= names, set(DEPLOY_SLICE_MODULES) - names
 
 
 def test_every_bound_entry_point_is_in_its_source():
@@ -637,8 +651,9 @@ def test_bls_launchers_refuse_cpu_and_malformed_tensors(cuda_device, bls_inputs)
 
 
 def test_port_chaos_loads_no_clients_module():
-    """``go_ibft_tpu_torch.chaos`` leaves out the JAX package's serve-plane
-    ``clients``: importing it, with JAX blocked, loads no such module."""
+    """``go_ibft_tpu_torch.chaos`` loads no ``clients`` module but its own
+    (the name is from before the port had one): importing it, with JAX
+    blocked, loads the port's serve-plane clients and no other."""
     root = Path(__file__).resolve().parent.parent
     code = """
 import sys
@@ -648,8 +663,8 @@ print(sorted(k for k in sys.modules if k.endswith(".clients") or k.endswith("cha
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "[]"
-    assert not (root / "go_ibft_tpu_torch" / "chaos" / "clients.py").exists()
+    assert out.stdout.strip() == "['go_ibft_tpu_torch.chaos.clients']"
+    assert (root / "go_ibft_tpu_torch" / "chaos" / "clients.py").exists()
 
 
 @pytest.mark.cuda
@@ -978,3 +993,90 @@ def test_mesh_rung_fault_on_the_card_propagates(cuda_device, monkeypatch):
     with pytest.raises(RuntimeError, match="simulated mesh"):
         adaptive.certify_senders(rnd.prepares, rnd.height)
     assert ecrecover.recover.launches == before
+
+
+@pytest.mark.cuda
+def test_boot_store_on_the_card_builds_cold_then_loads_cached(cuda_device, tmp_path):
+    """The AOT store on the card: a fresh build cache compiles the digest and
+    recovery sources (their programs cold, recorded to the ledger), a second
+    store on it compiles nothing (every program cached); each program ran
+    its kernels, and a failed build propagates."""
+    from go_ibft_tpu_torch import _build
+    from go_ibft_tpu_torch.boot import aot
+    from go_ibft_tpu_torch.obs import ledger
+    from go_ibft_tpu_torch.utils import buildcache
+
+    programs = ["digest_words_8l", "ecdsa_recover_8l", "round_certify_8l", "ecmul2_base_8l"]
+    saved = (_build.BUILD_DIR, buildcache._enabled)
+    led = ledger.enable()
+    try:
+        before = (tq.digest_words.launches, ecrecover.recover.launches)
+        cold = aot.AOTStore(str(tmp_path / "cache")).ensure(programs)
+        assert {p: s.status for p, s in cold.items()} == {
+            "digest_words_8l": "cold", "ecdsa_recover_8l": "cold", "round_certify_8l": "cold",
+            "ecmul2_base_8l": "cached"}
+        assert tq.digest_words.launches - before[0] == 2 and ecrecover.recover.launches - before[1] == 2
+        events = led.snapshot()["compiles"]
+        assert set(events) == {"digest_words", "ecdsa_recover", "round_certify"}, events
+        cached = aot.AOTStore(str(tmp_path / "cache")).ensure(programs)
+        assert {s.status for s in cached.values()} == {"cached"}
+        assert led.snapshot()["compiles"] == events
+        side = aot.AOTStore(str(tmp_path / "cache")).read_sidecar("digest_words_8l")
+        assert side["fingerprint"] == aot.fingerprint() and side["fingerprint"]["device_count"] >= 1
+        assert aot.AOTStore(str(tmp_path / "cache")).cached_programs() == set(programs)
+
+        def broken(names=()):
+            raise RuntimeError("nvcc failed for keccak_f1600.cu")
+
+        _build.build_all, real = broken, _build.build_all
+        try:
+            with pytest.raises(RuntimeError, match="nvcc failed"):
+                aot.AOTStore(str(tmp_path / "other")).ensure(["digest_words_8l"])
+        finally:
+            _build.build_all = real
+    finally:
+        ledger.disable()
+        _build.BUILD_DIR, buildcache._enabled = saved
+
+
+class _SoloTransport:
+    """A one-validator node's gossip without sockets: its multicast is its
+    own delivery."""
+
+    def __init__(self, deliver):
+        self._deliver = deliver
+        self.bound_port = None
+
+    async def start(self):
+        pass
+
+    async def stop(self):
+        pass
+
+    def multicast(self, message):
+        self._deliver(message)
+
+
+@pytest.mark.cuda
+def test_node_scheduler_on_the_device_route_on_the_card(cuda_device, tmp_path):
+    """A solo validator with the node's defaults (the device route on the
+    card) finalizes its heights with every flush on the card: no host-routed
+    flush, no fault, the digest and recovery kernels launched."""
+    import asyncio
+
+    from go_ibft_tpu_torch.crypto import PrivateKey
+    from go_ibft_tpu_torch.node import NodeConfig, ValidatorNode
+
+    key = PrivateKey.from_seed(b"card-node")
+    cfg = NodeConfig(node_id=0, key_seed="card-node", data_dir=str(tmp_path), validators={key.address.hex(): 1},
+                     heights=3)
+    assert (cfg.sched_route, cfg.torch_device) == ("device", None)
+    node = ValidatorNode(cfg, install_signal_handlers=False)
+    node.transport = node.engine.transport = _SoloTransport(node.ingress.submit)
+    before = (tq.digest_words.launches, ecrecover.recover.launches)
+    report = asyncio.run(asyncio.wait_for(node.run(), 300))
+    assert report["chain_height"] >= 3
+    routes = node.scheduler._dispatcher.routes
+    assert routes["host"] == 0 and routes["device"] > 0
+    assert report["sched"]["flush_faults"] == 0 and report["sched"]["dispatcher"]["device"].startswith("cuda")
+    assert tq.digest_words.launches > before[0] and ecrecover.recover.launches > before[1]
