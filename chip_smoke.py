@@ -18,12 +18,18 @@ Phases, in order (any failure exits non-zero and prints no result):
    every adversarial lane of ``bench/lanes.py``), each at the batch sizes
    the path uses and beyond, the recovery also against the host oracle;
    then the digest and the recovery on the two rounds' own inputs;
+   ``certify_lanes`` on the three rounds' recovered lanes (phases 4-6's;
+   the mask alone, one phase, two, and thresholds at each phase's counted
+   power - 1, the power and + 1) and on seeded lanes at every lane bucket
+   (two phases of 8 to 2,048 lanes) and table bucket (8 to 2,048 rows):
+   duplicate table rows with power, duplicate-sender spam, ``thr_hi`` >=
+   2**15;
 4. certify the 100-validator round (seed 0) through both entry points,
    ``ops.quorum.round_certify`` and ``DeviceBatchVerifier.certify_round``:
    every mask true, both quorums reached, masks equal to the host oracle
    (``crypto.ecdsa.recover_pure``, Python ints); the kernels' launch counts are set to 0
    before these two calls and read after them, and each call made exactly
-   one digest launch;
+   one digest launch and one ``certify_lanes`` launch;
 5. the 300-validator round with 30 % bad signatures: masks equal the
    expected masks, quorum reached (210 >= 201);
 6. a 100-validator round with 34 bad signatures: no quorum;
@@ -31,9 +37,11 @@ Phases, in order (any failure exits non-zero and prints no result):
    plain version and its bound, the digest also at 128 messages of 8 and of
    32 blocks (and its time on the card per launch, profiler), and the
    recovery at 1 to 16,384 lanes;
-   time phases 4-5 with CUDA events and the host clock (median of 20 calls
-   after warm-up), and profile one 100-validator call: device kernels
-   (fewer than 10,000), device busy time, idle share (the profiler's
+   ``certify_lanes`` at the two rounds' lanes and at 2 x 2,048 lanes x
+   2,048 rows; time phases 4-5 with CUDA events and the host clock (median
+   of 20 calls after warm-up), and profile one 100-validator call: device
+   kernels (fewer than 10,000), launch calls (at most 5), device busy time,
+   idle share, and one engine height among 100 validators (the profiler's
    numbers from a process of its own, ``--main-profile``);
 8. the engine phase (:func:`engine_phase`): the port's ``IBFT`` finalizing
    real heights with its drains on the card — A: one engine among 100
@@ -234,6 +242,12 @@ RECOVER_DIGIT_FIELD_MULS = (11, 11, 16, 17)
 RECOVER_MONT_MULS = 1 + 328 + 2
 RECOVER_WIDE_PRODUCTS = 2 * (2 + 4)
 RECOVER_BYTES_PER_LANE = (8 + 20 + 20 + 1) * 4 + (20 + 20 + 5) * 4 + 1  # in + out
+# certify_lanes: the verifier's lane buckets (a phase's lanes) and table
+# buckets (verify/batch.py), each held with seeded lanes in two phases; the
+# worst, 2 x 2,048 lanes against 2,048 rows, is also timed.
+CERTIFY_LANES = (8, 32, 128, 512, 1024, 2048)
+CERTIFY_ROWS = (8, 128, 512, 2048)
+CERTIFY_WORST = (2048, 2048)
 
 
 def check(cond: bool, what: str) -> None:
@@ -406,6 +420,67 @@ def main_path_inputs(rargs, quorum):
     zw = torch.cat([quorum.digest_words(blocks, counts), rargs[7]])
     r, s, v = (torch.cat([rargs[i], rargs[i + 6]]) for i in (2, 3, 4))
     return blocks, counts, zw, r, s, v
+
+
+def certify_case(n: int, rows: int, seed: int, dev):
+    """Seeded ``certify_lanes`` inputs on ``dev``: members, outsiders,
+    failed and wrong recoveries, dead lanes, duplicate-sender spam (the last
+    quarter of the lanes repeat the first), table rows 1..4 copies of row 0
+    (each with its own power) and powers up to 2**31 - 1, so that a phase's
+    power passes 2**31 and thresholds near it have ``thr_hi`` >= 2**15."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    table = rng.integers(0, 2**32, size=(rows, 5), dtype=np.uint32)
+    table[1:5] = table[0]
+    powers = rng.integers(1, 2**31, size=rows)
+    claimed = table[rng.integers(0, rows, size=n)]
+    outsider = rng.random(n) < 0.1
+    claimed[outsider] = rng.integers(0, 2**32, size=(int(outsider.sum()), 5), dtype=np.uint32)
+    claimed[n - n // 4:] = claimed[:n // 4]
+    addr = claimed.copy()
+    addr[rng.random(n) < 0.05, 2] ^= np.uint32(1)
+    ok, live = rng.random(n) < 0.9, rng.random(n) < 0.95
+    words = [torch.from_numpy(a.view(np.int32)).to(dev) for a in (addr, claimed, table)]
+    halves = [torch.from_numpy(a.astype(np.int32)).to(dev) for a in (powers & 0xFFFF, powers >> 16)]
+    return (words[0], torch.from_numpy(ok).to(dev), words[1], torch.from_numpy(live).to(dev), words[2], *halves)
+
+
+def certify_inputs(rargs, quorum, ecrecover):
+    """The inputs ``round_certify(*rargs)`` gives ``certify_lanes``: the
+    recovery kernel's addresses and ``ok`` over both phases' lanes, the
+    claimed addresses, the live lanes, the table and the powers; and its
+    thresholds (both phases the round's) and split."""
+    zw, r, s, v = main_path_inputs(rargs, quorum)[2:]
+    _, _, addr, ok = ecrecover.recover(zw, r, s, v)
+    claimed, live = torch.cat([rargs[5], rargs[11]]), torch.cat([rargs[6], rargs[12]])
+    return (addr, ok, claimed, live, *rargs[13:16]), [(rargs[16], rargs[17])] * 2, rargs[5].shape[0]
+
+
+def edge_thresholds(plain_out):
+    """Each phase's thresholds at its counted power - 1, the power and + 1,
+    as (lo, hi) halves, from the plain version's ``(mask, reached, lo,
+    hi)``."""
+    gots = [int(h) * 65536 + int(low) for low, h in zip(plain_out[2].tolist(), plain_out[3].tolist())]
+    return [[((g + d) & 0xFFFF, (g + d) >> 16) for g in gots] for d in (-1, 0, 1)]
+
+
+def certify_work(args, phases: int) -> tuple:
+    """Bytes ``certify_lanes`` must move (each input read once, each output
+    written once) and the 32-bit operations these inputs need: 5 word
+    compares a recovered live lane, then each signed lane's first word
+    against every row and 4 more words on the rows whose first word is
+    equal (all rows: every equal row counts), 2 adds a counted row."""
+    import numpy as np
+
+    addr, ok, claimed, live, table = (t.cpu().numpy() for t in args[:5])
+    n, rows = ok.shape[0], table.shape[0]
+    signed = ok & live & (addr == claimed).all(-1)
+    first = claimed[signed, None, 0] == table[None, :, 0]
+    counted = (claimed[signed, None, :] == table[None, :, :]).all(-1).any(0).sum()
+    ops = 5 * int((ok & live).sum()) + int(signed.sum()) * rows + 4 * int(first.sum()) + 2 * int(counted)
+    nbytes = n * (2 * 5 * 4 + 2) + rows * (5 * 4 + 2 * 4) + n + phases * (1 + 4 + 4)
+    return nbytes, ops
 
 
 def no_host_fallback(what: str) -> None:
@@ -2116,8 +2191,9 @@ def validator_phase(report: dict, ident: str, counts, holds, dev=None, small: bo
     check(seeded_launches["secp256k1_recover"] == 0 and seeded_launches["keccak256_digest"] == 0,
           "13b: the seeded seals verify with no recovery or digest launch")
     if card:
-        check(boot_launches["keccak256_digest"] == 3 and boot_launches["secp256k1_recover"] == 3,
-              "13b: the four main families: 3 digest and 3 recovery launches")
+        check(boot_launches["keccak256_digest"] == 3 and boot_launches["secp256k1_recover"] == 3
+              and boot_launches["certify_lanes"] == 2,
+              "13b: the four main families: 3 digest, 3 recovery and 2 certify_lanes launches")
         check(all(s.status == "cached" for s in rep.programs.values()), "13b: phase 2's libraries: all cached")
     rargs = program_registry(["round_certify_8l"], device=dev)["round_certify_8l"]()[1]
     b_blocks, b_counts, zw, r, s, v = main_path_inputs(rargs, quorum)
@@ -2391,8 +2467,9 @@ def main_profile() -> int:
     seeded here.  Prints one JSON line."""
     from go_ibft_tpu_torch import convert
     from go_ibft_tpu_torch.bench import build_signed_round
+    from go_ibft_tpu_torch.bench.engine import Committee, EngineRunner, check_height
     from go_ibft_tpu_torch.crypto.backend import ECDSABackend
-    from go_ibft_tpu_torch.ops import ecrecover, keccak_f1600, quorum
+    from go_ibft_tpu_torch.ops import certify_lanes, ecrecover, keccak_f1600, quorum
     from go_ibft_tpu_torch.verify import DeviceBatchVerifier
 
     dev = torch.device("cuda")
@@ -2404,6 +2481,12 @@ def main_profile() -> int:
         work.append(("keccak256_digest", label, 20,
                      lambda blocks=blocks, counts=counts: keccak_f1600.launch_digest(blocks, counts, True)))
         work.append(("secp256k1_recover", label, 5, lambda ins=(zw, r, s, v): ecrecover.launch(*ins)))
+        c_args, c_thr, c_split = certify_inputs(convert.round_args(rnd.pack()), quorum, ecrecover)
+        work.append(("certify_lanes", label, 20,
+                     lambda a=c_args, t=c_thr, p=c_split: certify_lanes.launch(*a, t, p)))
+    worst = certify_case(2 * CERTIFY_WORST[0], CERTIFY_WORST[1], 1, dev)
+    work.append(("certify_lanes", "2x2048x2048", 20,
+                 lambda: certify_lanes.launch(*worst, [(1, 0), (1, 0)], CERTIFY_WORST[0])))
     for b, nb in DIGEST_LONG:
         blocks = torch.randint(-(2**31), 2**31, (b, nb, 17, 2), dtype=torch.int32, generator=gen).to(dev)
         counts = torch.full((b,), nb, dtype=torch.int32, device=dev)
@@ -2417,6 +2500,14 @@ def main_profile() -> int:
     def certify(label):
         rnd = rounds[label]
         return verifiers[label].certify_round(rnd.prepares, rnd.proposal_hash, rnd.seals, rnd.height)
+
+    # One engine among 100 validators (phase 8's run A), a height to warm
+    # up and the next one profiled.
+    committee = Committee(100, seed=0)
+    heights = committee.heights(1, 2)
+    runner = EngineRunner(committee, 1, DeviceBatchVerifier(committee.src))
+    schedules = [committee.schedule(h) for h in heights]
+    check_height(committee, runner.run_height(heights[0], schedules[0]))
 
     for _, _, _, fn in work:  # warm-up: builds, loads, first launches
         fn()
@@ -2432,20 +2523,23 @@ def main_profile() -> int:
 
     prof = profile_call(run_all, ordered=True)
     certified = {label: profile_call(lambda label=label: certify(label)) for label in rounds}
+    ran = []
+    height = profile_call(lambda: ran.append(runner.run_height(heights[1], schedules[1])))
+    check_height(committee, ran[0])
     per_launch: dict = {}
     queues = {}
     for name, ms in prof["events"]:
-        queues.setdefault(next((k for k in ("keccak256_digest", "secp256k1_recover", "keccak_f1600") if k in name),
-                               None), []).append(ms)
+        queues.setdefault(next((k for k in ("keccak256_digest", "secp256k1_recover", "keccak_f1600", "certify_lanes")
+                                if k in name), None), []).append(ms)
     for kernel, label, n, _ in work:
         times = queues.get(kernel, [])[:n]
         queues[kernel] = queues.get(kernel, [])[n:]
         check(len(times) == n, f"the profiler recorded {n} launches of {kernel} at {label} ({len(times)})")
         per_launch.setdefault(kernel, {})[str(label)] = sum(times) / n
-    for call in certified.values():
+    for call in (*certified.values(), height):
         call["top_kernels_ms"] = sorted(call.pop("by_name_ms").items(), key=lambda kv: -kv[1])[:5]
         call.pop("count_by_name")
-    print(json.dumps({"device_ms_per_launch": per_launch, "certify_round": certified}), flush=True)
+    print(json.dumps({"device_ms_per_launch": per_launch, "certify_round": certified, "height": height}), flush=True)
     return 0
 
 
@@ -2555,7 +2649,7 @@ def main() -> int:
     from go_ibft_tpu_torch.crypto import ecdsa
     from go_ibft_tpu_torch.crypto.backend import ECDSABackend
     from go_ibft_tpu_torch.crypto.keccak import keccak256
-    from go_ibft_tpu_torch.ops import bls_kernels, ecrecover, keccak_f1600, quorum
+    from go_ibft_tpu_torch.ops import bls_kernels, certify_lanes, ecrecover, keccak_f1600, quorum
     from go_ibft_tpu_torch.ops import fields as tf
     from go_ibft_tpu_torch.ops import keccak as tk
     from go_ibft_tpu_torch.verify import DeviceBatchVerifier
@@ -2595,7 +2689,10 @@ def main() -> int:
     src300 = ECDSABackend.static_validators({m.sender: 1 for m in rnd300.prepares})
     args300 = convert.round_args(rnd300.pack())
     verifier300 = DeviceBatchVerifier(src300)
-    log(f"[3] built the signed 100- and 300-validator rounds in {time.perf_counter() - t0:.1f}s")
+    rnd34 = build_signed_round(100, corrupt_frac=0.34, seed=0)
+    args34 = convert.round_args(rnd34.pack())
+    log(f"[3] built the signed 100- and 300-validator rounds and the 34-bad one in "
+        f"{time.perf_counter() - t0:.1f}s")
 
     def exact(out, ref, what):
         check(torch.equal(out, ref), what)
@@ -2614,7 +2711,18 @@ def main() -> int:
         return x, y, ok
 
     gen = torch.Generator(device="cpu").manual_seed(0)
-    err = {"keccak_f1600": 0, "keccak256_digest": 0, "secp256k1_recover": 0}
+    err = {"keccak_f1600": 0, "keccak256_digest": 0, "secp256k1_recover": 0, "certify_lanes": 0}
+
+    def hold_certify(ins, thresholds, split, what):
+        """``certify_lanes.certify`` against ``certify_plain`` on ``ins``:
+        the mask, the verdicts and both power halves; returns the plain
+        version's output."""
+        out = certify_lanes.certify(*ins, thresholds, split)
+        torch.cuda.synchronize()
+        ref = certify_lanes.certify_plain(*ins, thresholds, split)
+        for got, want, part in zip(out, ref, ("mask", "reached", "lo", "hi")):
+            err["certify_lanes"] = max(err["certify_lanes"], exact(got, want, f"{what}: {part}"))
+        return ref
 
     def hold_digest(blocks, counts, what):
         """The digest kernel in both forms against its plain versions."""
@@ -2669,6 +2777,25 @@ def main() -> int:
                                  f"secp256k1_recover kernel == plain on the {label} round's lanes")
         log(f"[3] {label} round: digest at {tuple(blocks.shape)} and recovery at "
             f"{v.numel()} lanes ({int(ok.sum())} recover) bit-exact against plain")
+    t0 = time.perf_counter()
+    for label, rargs in (("100v", args100), ("300v_30bad", args300), ("100v_34bad", args34)):
+        c_args, thresholds, split = certify_inputs(rargs, quorum, ecrecover)
+        hold_certify(c_args, [], None, f"certify_lanes, mask alone, {label} round")
+        hold_certify(c_args, thresholds[:1], None, f"certify_lanes, one phase, {label} round")
+        ref = hold_certify(c_args, thresholds, split, f"certify_lanes, two phases, {label} round")
+        for edges in edge_thresholds(ref):
+            hold_certify(c_args, edges, split, f"certify_lanes at the {label} round's power {edges}")
+    for lanes in CERTIFY_LANES:
+        for rows in CERTIFY_ROWS:
+            c_args = certify_case(2 * lanes, rows, lanes + rows, dev)
+            ref = hold_certify(c_args, [(1, 0), (1, 0)], lanes, f"certify_lanes at 2 x {lanes} lanes, {rows} rows")
+            for edges in edge_thresholds(ref):
+                hold_certify(c_args, edges, lanes, f"certify_lanes at 2 x {lanes} x {rows}, thresholds {edges}")
+            hold_certify(c_args, [], None, f"certify_lanes mask alone at {2 * lanes} lanes, {rows} rows")
+    log(f"[3] certify_lanes bit-exact against plain on the three rounds' lanes (no phase, one, two; "
+        f"thresholds at each phase's power - 1, the power, + 1) and on seeded lanes at 2 x "
+        f"{CERTIFY_LANES} lanes x {CERTIFY_ROWS} rows (duplicate rows with power, sender spam, "
+        f"thr_hi >= 2**15) in {time.perf_counter() - t0:.1f}s")
     report["max_abs_err"] = err
 
     # -- 4. the 100-validator round through both entry points ----------
@@ -2677,6 +2804,7 @@ def main() -> int:
         "keccak_f1600": (tk.keccak_f,),
         "keccak256_digest": (quorum.digest_words, tk.keccak256_blocks),
         "secp256k1_recover": (ecrecover.recover,),
+        "certify_lanes": (certify_lanes.certify,),
         "bls_merge": (bls_kernels.merge,),
         "bls_miller": (bls_kernels.miller,),
         "bls_final_exp": (bls_kernels.final_exp,),
@@ -2693,10 +2821,12 @@ def main() -> int:
     reset_counts()
     out = quorum.round_certify(*args100)
     check(quorum.digest_words.launches == 1, "round_certify: exactly one digest launch")
+    check(certify_lanes.certify.launches == 1, "round_certify: exactly one certify_lanes launch")
     pm, pr, sm, sr = verifier100.certify_round(
         rnd100.prepares, rnd100.proposal_hash, rnd100.seals, rnd100.height
     )
     check(quorum.digest_words.launches == 2, "certify_round: exactly one digest launch")
+    check(certify_lanes.certify.launches == 2, "certify_round: exactly one certify_lanes launch")
     launches = read_counts()
     check(launches["keccak256_digest"] == 2 and tk.keccak256_blocks.launches == 0,
           "keccak256_digest launched once per entry point, in its value-word form")
@@ -2719,8 +2849,9 @@ def main() -> int:
     pm, pr, sm, sr = verifier300.certify_round(
         rnd300.prepares, rnd300.proposal_hash, rnd300.seals, rnd300.height
     )
-    check(quorum.digest_words.launches == 2 and ecrecover.recover.launches > 0,
-          "300 validators: the digest (once per call) and recovery kernels launched")
+    check(quorum.digest_words.launches == 2 and ecrecover.recover.launches > 0
+          and certify_lanes.certify.launches == 2,
+          "300 validators: the digest and certify_lanes (once per call) and recovery kernels launched")
     n = 300
     for name, got in (("round_certify", (out[0][:n], out[2][:n])), ("certify_round", (pm, sm))):
         check(list(got[0]) == list(rnd300.expected_prepare_mask), f"{name}: prepare mask == expected")
@@ -2731,13 +2862,13 @@ def main() -> int:
 
     # -- 6. 34 bad of 100: no quorum -----------------------------------
     reset_counts()
-    rnd34 = build_signed_round(100, corrupt_frac=0.34, seed=0)
-    out = [x.cpu().numpy() for x in quorum.round_certify(*convert.round_args(rnd34.pack()))]
+    out = [x.cpu().numpy() for x in quorum.round_certify(*args34)]
     pm, pr, sm, sr = verifier100.certify_round(
         rnd34.prepares, rnd34.proposal_hash, rnd34.seals, rnd34.height
     )
-    check(quorum.digest_words.launches == 2 and ecrecover.recover.launches > 0,
-          "34 bad: the digest (once per call) and recovery kernels launched")
+    check(quorum.digest_words.launches == 2 and ecrecover.recover.launches > 0
+          and certify_lanes.certify.launches == 2,
+          "34 bad: the digest and certify_lanes (once per call) and recovery kernels launched")
     check(list(pm) == list(rnd34.expected_prepare_mask) and int(pm.sum()) == 66, "34-bad prepare mask")
     check(list(sm) == list(rnd34.expected_seal_mask), "34-bad seal mask")
     check(not (pr or sr or bool(out[1]) or bool(out[3])), "66 < 67: neither quorum reached")
@@ -2747,7 +2878,7 @@ def main() -> int:
     # Each kernel at the main path's own inputs: the payload digests of the
     # 100- and 300-validator rounds (128 and 512 messages of 2 blocks) and
     # their recovery lanes (PREPARE + COMMIT: 256 and 1024).
-    timing = {"keccak_f1600": {}, "keccak256_digest": {}, "secp256k1_recover": {}}
+    timing = {"keccak_f1600": {}, "keccak256_digest": {}, "secp256k1_recover": {}, "certify_lanes": {}}
     # The profiler's numbers come from a process of its own: it records the
     # card only in a process's first sessions (PERF.md §7).
     child = subprocess.run([sys.executable, os.path.abspath(__file__), "--main-profile"],
@@ -2799,6 +2930,21 @@ def main() -> int:
                                generator=gen).to(dev)
         counts = torch.full((b,), nb, dtype=torch.int32, device=dev)
         timing["keccak256_digest"][f"{b}x{nb}"] = time_digest(blocks, counts, f"{b}x{nb}")
+    # certify_lanes at the two rounds' inputs (two phases, as round_certify
+    # and certify_round launch it) and at the worst bucket.
+    worst = certify_case(2 * CERTIFY_WORST[0], CERTIFY_WORST[1], 1, dev)
+    certify_timed = {label: certify_inputs(rargs, quorum, ecrecover)
+                     for label, rargs in (("100v", args100), ("300v_30bad", args300))}
+    certify_timed["2x2048x2048"] = (worst, [(1, 0), (1, 0)], CERTIFY_WORST[0])
+    for label, (c_args, thresholds, split) in certify_timed.items():
+        nbytes, ops = certify_work(c_args, len(thresholds))
+        timing["certify_lanes"][label] = {
+            "batch": c_args[1].numel(), "rows": c_args[4].shape[0],
+            "ms": cuda_time_ms(lambda a=c_args, t=thresholds, p=split: certify_lanes.launch(*a, t, p), 200),
+            "device_ms_per_launch": per_launch["certify_lanes"][label],
+            "plain_ms": cuda_time_ms(lambda a=c_args, t=thresholds, p=split: certify_lanes.certify_plain(*a, t, p), 20),
+            **bound(nbytes, ops),
+        }
     # The recovery at growing lane counts: the 300-validator round's 1,024
     # lanes repeated.
     zw, r, s, v = main_path_inputs(args300, quorum)[2:]
@@ -2849,6 +2995,13 @@ def main() -> int:
             log(f"    {ms:9.4f} ms  {name[:90]}")
     check(medians["100v"]["profile"]["device_kernels"] < 10_000,
           "fewer than 10,000 kernels per 100-validator certify_round")
+    check(medians["100v"]["profile"]["launch_calls"] <= 5,
+          "at most 5 launch calls per 100-validator certify_round")
+    height = profiled["height"]
+    log(f"[7] a height (one engine among 100 validators, the --main-profile process): "
+        f"{height['device_kernels']} kernels, {height['launch_calls']} launch calls, device busy "
+        f"{height['device_busy_ms']:.3f} ms of {height['profiled_wall_ms']:.3f} ms")
+    report["height_profile"] = height
     kern_dev_ms = per_launch["keccak_f1600"]["256"]
     timing["keccak_f1600"][256]["device_ms_per_launch"] = kern_dev_ms
     log(f"[7] keccak_f1600 at B=256: {kern_dev_ms * 1e3:.2f} us on the card per launch (profiler)")
@@ -2878,7 +3031,8 @@ def main() -> int:
     # -- 14. the kernels line and the result ---------------------------
     main = {"keccak_f1600": timing["keccak_f1600"][256],  # PR 1's main-path size
             "keccak256_digest": timing["keccak256_digest"]["100v"],
-            "secp256k1_recover": timing["secp256k1_recover"]["100v"]}
+            "secp256k1_recover": timing["secp256k1_recover"]["100v"],
+            "certify_lanes": timing["certify_lanes"]["100v"]}
     where = {
         "keccak_f1600": ("go_ibft_tpu_torch/csrc/keccak_f1600.cu",
                          "go_ibft_tpu/ops/pallas_keccak.py:131"),
@@ -2886,6 +3040,8 @@ def main() -> int:
                              "go_ibft_tpu/ops/quorum.py:65"),
         "secp256k1_recover": ("go_ibft_tpu_torch/csrc/secp256k1_recover.cu",
                               "go_ibft_tpu/ops/secp256k1.py:665"),
+        "certify_lanes": ("go_ibft_tpu_torch/csrc/certify_lanes.cu",
+                          "go_ibft_tpu/verify/batch.py:491"),
     }
     # "ms" is CUDA events over back-to-back launches, which the wrapper's
     # Python bounds for the short Keccak kernels; "device_ms_per_launch" is

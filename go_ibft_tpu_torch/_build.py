@@ -63,6 +63,13 @@ SIGNATURES = {
             ctypes.c_int,
         ),
     },
+    "certify_lanes": {
+        "certify_lanes": (
+            [_P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+             ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P],
+            ctypes.c_int,
+        ),
+    },
 }
 
 _lock = threading.Lock()

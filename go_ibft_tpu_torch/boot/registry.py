@@ -48,17 +48,21 @@ ENGINE_LANES = 8
 MESH_DPS = (2, 4, 8)
 
 _KECCAK, _RECOVER, _BLS = "keccak_f1600", "secp256k1_recover", "bls12_381"
+_CERTIFY = "certify_lanes"
 
 # The CUDA sources (csrc/<name>.cu) each family's kernels come from.
+# "ecdsa_recover" is also the verifier's mask dispatch (``_program_of``):
+# the recovery, then ``certify_lanes`` with no phase; a warmed family has
+# both built.
 _SOURCES: Dict[str, Tuple[str, ...]] = {
     "bls_aggregate_verify": (_BLS,),
     "bls_g2_merge_tree": (_BLS,),
     "bls_g1_merge_tree": (_BLS,),
     "digest_words": (_KECCAK,),
     "bls_multipair_miller": (_BLS,),
-    "quorum_certify": (_KECCAK, _RECOVER),
-    "round_certify": (_KECCAK, _RECOVER),
-    "ecdsa_recover": (_RECOVER,),
+    "quorum_certify": (_KECCAK, _RECOVER, _CERTIFY),
+    "round_certify": (_KECCAK, _RECOVER, _CERTIFY),
+    "ecdsa_recover": (_RECOVER, _CERTIFY),
     "ecmul2_base": (),
     "ici_tick_8n": (_KECCAK,),  # family_of keeps the node suffix
     "mesh_quorum_certify": (_KECCAK, _RECOVER),

@@ -28,6 +28,8 @@ half first) — byte for byte the little-endian ``(..., 25)`` uint64 lanes.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .. import _build
@@ -108,7 +110,8 @@ def _check_blocks(blocks: torch.Tensor, num_blocks: torch.Tensor) -> None:
 
 
 def launch_digest(
-    blocks: torch.Tensor, num_blocks: torch.Tensor, value_words: bool
+    blocks: torch.Tensor, num_blocks: torch.Tensor, value_words: bool,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Run the ``keccak256_digest`` kernel; returns ``(..., 8)`` int32 words.
 
@@ -130,7 +133,14 @@ def launch_digest(
         raise ValueError("digest inputs must be contiguous")
     lib = _build.load("keccak_f1600")
     batch = tuple(blocks.shape[:-3])
-    out = torch.empty(batch + (8,), dtype=torch.int32, device=blocks.device)
+    if out is None:
+        out = torch.empty(batch + (8,), dtype=torch.int32, device=blocks.device)
+    elif (tuple(out.shape) != batch + (8,) or out.dtype != torch.int32
+          or out.device != blocks.device or not out.is_contiguous()):
+        raise ValueError(
+            f"out must be a contiguous int32 {batch + (8,)} on {blocks.device}, got "
+            f"{out.dtype} {tuple(out.shape)} on {out.device}"
+        )
     n = num_blocks.numel()
     if n:
         # Launched with the blocks' card current (its stream and module).

@@ -267,7 +267,7 @@ class CoalescedDispatcher:
                         torch.zeros((bb, 5), dtype=torch.int32, device=dev),
                         torch.zeros((bb,), dtype=torch.bool, device=dev),
                     )
-                    RECOVER_KERNEL(dead, table)[0].cpu()
+                    RECOVER_KERNEL(dead, table).cpu()
                 with cost_ledger.dispatch_span(
                     "digest_words", route="warmup", padded=bb,
                     site="sched/dispatch.py:warmup",
@@ -378,15 +378,15 @@ class CoalescedDispatcher:
         return sender_ok, seal_ok
 
     def _sig_mask(self, inputs, table: np.ndarray) -> np.ndarray:
-        """One signature-validity launch of the recovery kernel (and its
-        membership glue) over uploaded lanes."""
+        """One signature-validity launch of the recovery kernel and one of
+        ``certify_lanes`` (the membership, no phase) over uploaded lanes."""
         with cost_ledger.dispatch_span(
             "ecdsa_recover",
             route="device",
             live_mask=inputs[-1].cpu().numpy() if cost_ledger.enabled() else None,
             site="sched/dispatch.py:_device",
         ):
-            mask, _eq = RECOVER_KERNEL(inputs, self._upload("table", table))
+            mask = RECOVER_KERNEL(inputs, self._upload("table", table))
             return mask.cpu().numpy()
 
     def _mesh_sig_mask(self, lanes, table: np.ndarray) -> np.ndarray:

@@ -634,25 +634,34 @@ def pack_sender_lanes(msgs: Sequence[IbftMessage], *, cache=None, hits=None, pad
     return _SenderLanes(blocks, counts, r, s, v, senders, live, big, big_zw)
 
 
+def sender_digest_rows(
+    lanes: _SenderLanes, upload: Callable[[str, np.ndarray], torch.Tensor], out: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """The digest rows of a packed envelope chunk (:func:`pack_sender_lanes`)
+    on the device: one launch of the digest kernel
+    (``ops/quorum.py::digest_words``), into ``out`` where given, and the
+    host digests of oversize payloads written over their rows.
+    ``upload(name, array)`` moves each host array to the device."""
+    zw = quorum.digest_words(upload("blocks", lanes.blocks), upload("counts", lanes.counts), out=out)
+    if lanes.big:
+        idx = torch.as_tensor(lanes.big, device=zw.device)
+        zw[idx] = upload("big_zw", lanes.big_zw)
+    return zw
+
+
 def pack_sender_digest_rows(
     lanes: _SenderLanes, upload: Callable[[str, np.ndarray], torch.Tensor]
 ) -> Tuple[torch.Tensor, ...]:
     """The device sender route's one digest sequence over a packed chunk
-    (:func:`pack_sender_lanes`): one launch of the digest kernel
-    (``ops/quorum.py::digest_words``) on the device, and the host digests
-    of oversize payloads written over their rows.  ``upload(name, array)``
-    moves each host array to the device.  Returns the device tensors
-    ``(zw, r, s, v, claimed, live)``.
+    (:func:`sender_digest_rows`), then the other fields uploaded.  Returns
+    the device tensors ``(zw, r, s, v, claimed, live)``.
 
     ONE implementation serves both the single-tenant plane
     (:meth:`DeviceBatchVerifier._upload`) and the multi-tenant coalesced
     dispatcher (``sched/dispatch.py``), so a fix to the oversize path can
     never apply to one and silently miss the other.
     """
-    zw = quorum.digest_words(upload("blocks", lanes.blocks), upload("counts", lanes.counts))
-    if lanes.big:
-        idx = torch.as_tensor(lanes.big, device=zw.device)
-        zw[idx] = upload("big_zw", lanes.big_zw)
+    zw = sender_digest_rows(lanes, upload)
     return (
         zw, upload("r", lanes.r), upload("s", lanes.s), upload("v", lanes.v),
         upload("claimed", lanes.claimed), upload("live", lanes.live),
@@ -722,17 +731,28 @@ class _Staging:
             done.synchronize()
         return slot
 
-    def upload(self, slot: int, name: str, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(_as_signed(a))
+    def host(self, slot: int, name: str, *parts: np.ndarray) -> torch.Tensor:
+        """``parts`` one after the other along the first axis, in the slot's
+        page-locked buffer for ``name`` (a CPU tensor of them on the CPU)."""
         if not self.pinned:
-            return t.to(self.device)
-        key = (name, tuple(t.shape), t.dtype)
+            return torch.from_numpy(_as_signed(parts[0] if len(parts) == 1 else np.concatenate(parts)))
+        ts = [torch.from_numpy(_as_signed(a)) for a in parts]
+        shape = (sum(t.shape[0] for t in ts),) + tuple(ts[0].shape[1:])
+        key = (name, shape, ts[0].dtype)
         buf = self._bufs[slot].get(key)
         if buf is None:
-            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            buf = torch.empty(shape, dtype=ts[0].dtype, pin_memory=True)
             self._bufs[slot][key] = buf
-        buf.copy_(t)
-        return buf.to(self.device, non_blocking=True)
+        at = 0
+        for t in ts:
+            buf[at:at + t.shape[0]].copy_(t)
+            at += t.shape[0]
+        return buf
+
+    def upload(self, slot: int, name: str, *parts: np.ndarray) -> torch.Tensor:
+        """``parts`` concatenated on the host (:meth:`host`), then one copy
+        to the device."""
+        return self.host(slot, name, *parts).to(self.device, non_blocking=self.pinned)
 
     def download(self, t: torch.Tensor) -> torch.Tensor:
         """Start copying a device result back into pinned host memory; read
@@ -967,13 +987,28 @@ class DeviceBatchVerifier:
             up(slot, "claimed", lanes.claimed), up(slot, "live", lanes.live),
         )
 
+    def _upload_round(self, slot: int, prep: _SenderLanes, seal: _DigestLanes) -> Tuple[torch.Tensor, ...]:
+        """A round's two packed halves -> device ``(zw, r, s, v, claimed,
+        live)`` of both, PREPARE lanes first, with no concatenation on the
+        device: each field's halves meet in one staging buffer on the host
+        and go up in one copy; the digest kernel writes the envelopes' rows
+        into the first half of ``zw``, the proposal hash rows fill its
+        second half."""
+        n = prep.live.shape[0]
+        zw = torch.empty((n + seal.live.shape[0], 8), dtype=torch.int32, device=self.device)
+        zw[n:].copy_(self._staging.host(slot, "round.seal_zw", seal.zw), non_blocking=self._staging.pinned)
+        sender_digest_rows(prep, lambda name, a: self._staging.upload(slot, "round." + name, a), out=zw[:n])
+        return (zw,) + tuple(
+            self._staging.upload(slot, "round." + name, getattr(prep, name), getattr(seal, name))
+            for name in ("r", "s", "v", "claimed", "live")
+        )
+
     @staticmethod
-    def _mask(inputs, table: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Validity mask (signature + membership) and the equality matrix."""
-        zw, r, s, v, claimed, live = inputs
-        ok = quorum.sig_checks_zw(zw, r, s, v, claimed, live)
-        eq = quorum.membership_eq(claimed, table)
-        return ok & torch.any(eq, dim=-1), eq
+    def _mask(inputs, table: torch.Tensor) -> torch.Tensor:
+        """Validity mask (signature + membership): the recovery, then the
+        ``certify_lanes`` kernel with no phase (its plain version on the
+        CPU)."""
+        return quorum.certify_zw(*inputs, table)[0]
 
     def _dispatch_async(self, lanes, table: torch.Tensor, quorum_args):
         """Queue the mask (``quorum_args`` None) or mask+quorum (``(plo,
@@ -990,11 +1025,13 @@ class DeviceBatchVerifier:
             with trace.span("verify.dispatch", route="device"):
                 slot = self._staging.begin()
                 try:
-                    ok, eq = self._mask(self._upload(slot, lanes), table)
+                    inputs = self._upload(slot, lanes)
                     reached = None
-                    if quorum_args is not None:
+                    if quorum_args is None:
+                        ok = self._mask(inputs, table)
+                    else:
                         plo, phi, thr = quorum_args
-                        reached, _, _ = quorum.power_reduce(ok, eq, plo, phi, *_threshold(thr))
+                        ok, reached, _, _ = quorum.certify_zw(*inputs, table, plo, phi, [_threshold(thr)])
                         reached = self._staging.download(reached)
                     mask = self._staging.download(ok)
                 finally:
@@ -1137,15 +1174,12 @@ class DeviceBatchVerifier:
                 with trace.span("verify.dispatch", route="device"):
                     slot = self._staging.begin()
                     try:
-                        both = tuple(
-                            torch.cat([a, b])
-                            for a, b in zip(self._upload(slot, prep, "prepare."), self._upload(slot, seal, "seal."))
+                        inputs = self._upload_round(slot, prep, seal)
+                        ok, reached, _, _ = quorum.certify_zw(
+                            *inputs, table, plo, phi, [_threshold(p_thr), _threshold(seal_thr)], split=lanes
                         )
-                        ok, eq = self._mask(both, table)
-                        p_reached, _, _ = quorum.power_reduce(ok[:lanes], eq[:lanes], plo, phi, *_threshold(p_thr))
-                        s_reached, _, _ = quorum.power_reduce(ok[lanes:], eq[lanes:], plo, phi, *_threshold(seal_thr))
                         mask = self._staging.download(ok)
-                        both_reached = self._staging.download(torch.stack([p_reached, s_reached]))
+                        both_reached = self._staging.download(reached)
                     finally:
                         done = self._staging.finish(slot)
                 with trace.span("verify.device_wait", route="device"):

@@ -46,6 +46,7 @@ from ..messages.helpers import CommittedSeal
 from ..messages.wire import IbftMessage
 from ..obs import ledger as cost_ledger
 from ..obs import trace
+from ..ops import quorum
 from ..parallel.mesh import Mesh, mesh_context
 from ..utils import metrics
 from .batch import (
@@ -92,8 +93,10 @@ def _fields(lanes) -> Dict[str, np.ndarray]:
 
 class ShardedMask:
     """The lane-sharded verification mask over one mesh: signature validity
-    AND membership in the table, per lane, as
-    :meth:`DeviceBatchVerifier._mask` computes it on one device.
+    AND membership in the table, per lane, the function
+    :meth:`DeviceBatchVerifier._mask` computes on one device; each shard
+    still computes it with eager ops after its recovery launch (not the
+    ``certify_lanes`` kernel).
 
     :meth:`dispatch` takes a packed host chunk (:class:`_SenderLanes` or
     :class:`_DigestLanes`, numpy, a multiple of ``dp`` lanes) and the
@@ -136,7 +139,9 @@ class ShardedMask:
                 inputs = pack_sender_digest_rows(sh, lambda name, a, up=up: up[name])
             else:
                 inputs = tuple(up[f] for f in _DIGEST_FIELDS)
-            oks.append(DeviceBatchVerifier._mask(inputs, table)[0])
+            zw, r, s, v, claimed, live = inputs
+            member = torch.any(quorum.membership_eq(claimed, table), dim=-1)
+            oks.append(quorum.sig_checks_zw(zw, r, s, v, claimed, live) & member)
         # 3. The copies back, each ordered after its shard's kernels.
         handle = []
         for ok, dev in zip(oks, self.devices):

@@ -28,7 +28,7 @@ from go_ibft_tpu_torch.bench import (
     build_sparse_scalar_lanes,
 )
 from go_ibft_tpu_torch.crypto.backend import ECDSABackend
-from go_ibft_tpu_torch.ops import ecrecover, keccak_f1600
+from go_ibft_tpu_torch.ops import certify_lanes, ecrecover, keccak_f1600
 from go_ibft_tpu_torch.ops import fields as tf
 from go_ibft_tpu_torch.ops import keccak as tk
 from go_ibft_tpu_torch.ops import quorum as tq
@@ -295,6 +295,93 @@ def test_engine_finalizes_heights_on_card_without_fallback(cuda_device):
     assert verifier.breaker.level == 0
 
 
+def _certify_case(n, v, seed, device):
+    """Seeded certify inputs on ``device``: members, outsiders, failed and
+    wrong recoveries, dead lanes, spam (the last 16 lanes repeat the first
+    16), a table whose rows 1..4 copy row 0 (each with its own power) and
+    powers up to 2**31 - 1, so a phase's power passes 2**31."""
+    rng = np.random.default_rng(seed)
+    table = rng.integers(0, 2**32, size=(v, 5), dtype=np.uint32)
+    table[1:5] = table[0]
+    powers = rng.integers(1, 2**31, size=v)
+    claimed = table[rng.integers(0, v, size=n)]
+    outsider = rng.random(n) < 0.1
+    claimed[outsider] = rng.integers(0, 2**32, size=(int(outsider.sum()), 5), dtype=np.uint32)
+    claimed[n - 16:] = claimed[:16]
+    addr = claimed.copy()
+    addr[rng.random(n) < 0.05, 2] ^= np.uint32(1)
+    ok, live = rng.random(n) < 0.9, rng.random(n) < 0.95
+    words = [torch.from_numpy(a.view(np.int32)).to(device) for a in (addr, claimed, table)]
+    flags = [torch.from_numpy(a).to(device) for a in (ok, live)]
+    halves = [torch.from_numpy(a.astype(np.int32)).to(device) for a in (powers & 0xFFFF, powers >> 16)]
+    return (words[0], flags[0], words[1], flags[1], words[2], *halves), int(powers[:v].sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [8, 128, 2048])
+@pytest.mark.parametrize("rows", [8, 128, 512, 2048])
+def test_certify_lanes_matches_plain_at_every_bucket(cuda_device, lanes, rows):
+    """``certify_lanes`` at every lane and table bucket of the verifier
+    (two phases of ``lanes`` each, as ``certify_round`` packs them; one
+    phase; the mask alone), the worst bucket 2 x 2,048 x 2,048 included,
+    against its plain version on the same card; thresholds at 0, 1, the
+    whole table's power and past it, some with ``thr_hi`` >= 2**15, one as
+    0-d tensors on the card."""
+    args, total = _certify_case(2 * lanes, rows, lanes + rows, cuda_device)
+    on_card = (torch.tensor(7, dtype=torch.int32, device=cuda_device),
+               torch.tensor(1, dtype=torch.int32, device=cuda_device))
+    cases = [([], None), ([(1, 0)], None), ([(total & 0xFFFF, total >> 16), on_card], lanes),
+             ([(0, 0), ((total + 1) & 0xFFFF, (total + 1) >> 16)], lanes - 3)]
+    for thresholds, split in cases:
+        before = certify_lanes.certify.launches
+        ours = certify_lanes.certify(*args, thresholds, split)
+        torch.cuda.synchronize()
+        assert certify_lanes.certify.launches == before + 1
+        ref = certify_lanes.certify_plain(*args, thresholds, split)
+        for a, b in zip(ours, ref):
+            assert torch.equal(a, b), (thresholds, split)
+
+
+@pytest.mark.cuda
+def test_certify_round_on_card_launches_each_kernel_once(cuda_device):
+    rnd = build_signed_round(16, corrupt_frac=0.25, seed=4)
+    src = ECDSABackend.static_validators({m.sender: 1 for m in rnd.prepares})
+    card = DeviceBatchVerifier(src)
+    card.certify_round(rnd.prepares, rnd.proposal_hash, rnd.seals, rnd.height)  # tables uploaded
+    counts = (tq.digest_words, ecrecover.recover, certify_lanes.certify, tk.keccak_f, tk.keccak256_blocks)
+    before = [fn.launches for fn in counts]
+    ours = card.certify_round(rnd.prepares, rnd.proposal_hash, rnd.seals, rnd.height)
+    assert [fn.launches - b for fn, b in zip(counts, before)] == [1, 1, 1, 0, 0]
+    assert np.array_equal(ours[0], rnd.expected_prepare_mask)
+    assert np.array_equal(ours[2], rnd.expected_seal_mask)
+
+
+@pytest.mark.cuda
+def test_certify_launcher_refuses_what_it_does_not_take(cuda_device):
+    args, _ = _certify_case(32, 8, 1, cuda_device)
+    addr, ok, claimed, live, table, plo, phi = args
+    with pytest.raises(ValueError):
+        certify_lanes.launch(*(t.cpu() for t in args), [(1, 0)])
+    with pytest.raises(ValueError):
+        certify_lanes.launch(addr, ok, claimed, live.cpu(), table)  # two devices
+    with pytest.raises(ValueError):
+        certify_lanes.launch(addr, ok, claimed, live, table, plo, phi,
+                             [(torch.tensor(1, dtype=torch.int32), 0)])  # a threshold on the CPU
+    with pytest.raises(ValueError):
+        certify_lanes.launch(addr.t().contiguous().t(), ok, claimed, live, table)  # not contiguous
+    with pytest.raises(TypeError):
+        certify_lanes.launch(addr, ok.to(torch.uint8), claimed, live, table)
+    with pytest.raises(ValueError):
+        certify_lanes.launch(addr, ok, claimed[:31], live, table)
+    with pytest.raises(ValueError):
+        certify_lanes.launch(addr, ok, claimed, live, table, plo[:7], phi, [(1, 0)])
+    before = certify_lanes.certify.launches
+    mask, reached, lo, hi = certify_lanes.certify(addr[:0], ok[:0], claimed[:0], live[:0], table, plo, phi,
+                                                  [(0, 0), (1, 0)])
+    assert certify_lanes.certify.launches == before  # no lane, no launch
+    assert mask.shape == (0,) and reached.tolist() == [True, False] and lo.tolist() == hi.tolist() == [0, 0]
+
+
 # Modules the walk below must reach: the chain layer, the chaos tools, the
 # host tracing tools and the speculator, besides everything else.
 CHAIN_SLICE_MODULES = (
@@ -350,10 +437,14 @@ DEPLOY_SLICE_MODULES = (
 )
 
 
+# The certify slice's module: the kernel's launcher and its plain version.
+CERTIFY_SLICE_MODULES = ("go_ibft_tpu_torch.ops.certify_lanes", "go_ibft_tpu_torch.ops.quorum")
+
+
 def test_port_imports_nothing_of_jax():
     """A fresh interpreter where ``import jax`` fails imports every module
-    of ``go_ibft_tpu_torch``, the chain, BLS, serving, cluster and
-    deployment slices' among them; no ``go_ibft_tpu`` module gets loaded."""
+    of ``go_ibft_tpu_torch``, the chain, BLS, serving, cluster, deployment
+    and certify slices' among them; no ``go_ibft_tpu`` module gets loaded."""
     root = Path(__file__).resolve().parent.parent
     code = """
 import importlib, pkgutil, sys
@@ -376,6 +467,7 @@ print(" ".join(names))
     assert set(SERVING_SLICE_MODULES) <= names, set(SERVING_SLICE_MODULES) - names
     assert set(CLUSTER_SLICE_MODULES) <= names, set(CLUSTER_SLICE_MODULES) - names
     assert set(DEPLOY_SLICE_MODULES) <= names, set(DEPLOY_SLICE_MODULES) - names
+    assert set(CERTIFY_SLICE_MODULES) <= names, set(CERTIFY_SLICE_MODULES) - names
 
 
 def test_every_bound_entry_point_is_in_its_source():
