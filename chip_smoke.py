@@ -23,7 +23,9 @@ Phases, in order (any failure exits non-zero and prints no result):
    power - 1, the power and + 1) and on seeded lanes at every lane bucket
    (two phases of 8 to 2,048 lanes) and table bucket (8 to 2,048 rows):
    duplicate table rows with power, duplicate-sender spam, ``thr_hi`` >=
-   2**15;
+   2**15; and at the edges of a phase spread over a cluster of 8 blocks
+   (``CERTIFY_EDGES``: fewer lanes than blocks, one lane, an empty phase,
+   2,049 rows, more lanes a block than threads);
 4. certify the 100-validator round (seed 0) through both entry points,
    ``ops.quorum.round_certify`` and ``DeviceBatchVerifier.certify_round``:
    every mask true, both quorums reached, masks equal to the host oracle
@@ -38,7 +40,7 @@ Phases, in order (any failure exits non-zero and prints no result):
    32 blocks (and its time on the card per launch, profiler), and the
    recovery at 1 to 16,384 lanes;
    ``certify_lanes`` at the two rounds' lanes and at 2 x 2,048 lanes x
-   2,048 rows; time phases 4-5 with CUDA events and the host clock (median
+   2,048 rows, and its launcher's host time back to back; time phases 4-5 with CUDA events and the host clock (median
    of 20 calls after warm-up), and profile one 100-validator call: device
    kernels (fewer than 10,000), launch calls (at most 5), device busy time,
    idle share, and one engine height among 100 validators (the profiler's
@@ -116,8 +118,11 @@ Phases, in order (any failure exits non-zero and prints no result):
    (``parallel.mesh_quorum_certify`` / ``mesh_seal_quorum_certify`` at vp 1
    and 2) and a ``MeshBatchVerifier`` over 4 shards of the card (and over
    every card when there are two or more): masks, verdicts and lo/hi equal
-   one device's and the host oracle's, a drain makes a recovery launch a
-   shard, ``certify_round`` timed beside the single device's; a
+   one device's and the host oracle's, a drain makes a recovery and a
+   ``certify_lanes`` launch a shard, a sharded certify one ``certify_lanes``
+   launch, a mesh ``certify_round`` one a shard a phase, ``certify_round``
+   timed beside the single device's (and one profiled in the
+   ``--main-profile`` process, its device events in order); a
    ``CoalescedDispatcher`` on the mesh route; (b) config #15: 100
    sim-crypto validators x 5 heights lock-step against loopback on one card
    and on 4 shards, every chain ``sim_block(h)``, the 1,000-validator tick
@@ -165,7 +170,9 @@ BLS kernels (``bls_kernels_only``), and ``--main-path-ab`` for phase 4's
 ``certify_round`` and engine run A (``main_path_ab``).  ``--main-profile`` and
 ``--bls-profile`` only profile phase 7's kernels and calls (``main_profile``)
 and config #4's BLS kernels and one check (``bls_profile``); phases 7 and
-10 run them.
+10 run them.  ``--main-profile`` also times ``certify_lanes``' launcher and
+profiles a mesh ``certify_round``, and like ``--main-path-ab`` takes the
+package first on the import path, so two checkouts can be compared in turn.
 
 It imports nothing of JAX or of the JAX package.  It needs one card and
 exits non-zero where ``torch.cuda.is_available()`` is false.
@@ -248,6 +255,13 @@ RECOVER_BYTES_PER_LANE = (8 + 20 + 20 + 1) * 4 + (20 + 20 + 5) * 4 + 1  # in + o
 CERTIFY_LANES = (8, 32, 128, 512, 1024, 2048)
 CERTIFY_ROWS = (8, 128, 512, 2048)
 CERTIFY_WORST = (2048, 2048)
+# certify_lanes runs a phase on a cluster of 8 blocks: its edges, as (lanes,
+# rows, split) with two phases split there (None: one phase), each also held
+# as the mask alone.  A phase with fewer lanes than blocks, one lane, an
+# empty phase (split at 0 and at n), a second table tile of one row, and
+# more lanes a block than a block has threads.
+CERTIFY_EDGES = ((10, 64, 3), (1, 8, None), (1, 8, 1), (40, 128, 0), (40, 128, 40), (96, 2049, 48),
+                 (8400, 8, 4200))
 
 
 def check(cond: bool, what: str) -> None:
@@ -1895,6 +1909,12 @@ def cluster_phase(report: dict, ident: str, counts, holds, rounds: dict, dev=Non
 
     launched = {"mesh": {}, "cluster": {}}
 
+    def certified(fn):
+        """``tally("mesh", fn)`` and the ``certify_lanes`` launches it made."""
+        before = read_counts()["certify_lanes"]
+        got = tally("mesh", fn)
+        return got, read_counts()["certify_lanes"] - before
+
     def tally(kind, fn):
         """``fn()``, its kernel launches added to ``launched[kind]``."""
         before = read_counts()
@@ -1926,26 +1946,34 @@ def cluster_phase(report: dict, ident: str, counts, holds, rounds: dict, dev=Non
         for name, devices in layouts:
             for vp in (1, 2):
                 mesh = make_mesh(devices=devices, vp=vp)
-                got_q = tally("mesh", lambda: [x.cpu() for x in mesh_quorum_certify(mesh)(*q_args)])
-                got_s = tally("mesh", lambda: [x.cpu() for x in mesh_seal_quorum_certify(mesh)(*s_args)])
+                got_q, n_q = certified(lambda: [x.cpu() for x in mesh_quorum_certify(mesh)(*q_args)])
+                got_s, n_s = certified(lambda: [x.cpu() for x in mesh_seal_quorum_certify(mesh)(*s_args)])
                 check(all(torch.equal(x, y) for x, y in zip(got_q + got_s, want_q + want_s)),
                       f"12a {label}, {name}, vp={vp}: sharded certify == one device's (mask, reached, lo, hi)")
+                check(not card or n_q == n_s == 1,
+                      f"12a {label}, {name}, vp={vp}: one certify_lanes launch a sharded certify ({n_q}, {n_s})")
             mv = MeshBatchVerifier(src, devices=devices)
             before = read_counts()["secp256k1_recover"]
-            mask = tally("mesh", lambda: mv.verify_senders(rnd.prepares))
+            mask, n_drain = certified(lambda: mv.verify_senders(rnd.prepares))
             rec = read_counts()["secp256k1_recover"] - before
-            check(not card or rec == mv.dp, f"12a {label}, {name}: a drain's recovery launches == dp ({rec}, {mv.dp})")
+            check(not card or rec == n_drain == mv.dp,
+                  f"12a {label}, {name}: a drain's recovery and certify_lanes launches == dp ({rec}, {n_drain}, {mv.dp})")
             check(list(mask) == hp, f"12a {label}, {name}: the mesh drain's mask == host oracle")
-            res = tally("mesh", lambda: mv.certify_round(rnd.prepares, rnd.proposal_hash, rnd.seals, rnd.height))
+            res, n_round = certified(lambda: mv.certify_round(rnd.prepares, rnd.proposal_hash, rnd.seals, rnd.height))
             check(list(res[0]) == hp and list(res[2]) == hs and res[1] == one[1] and res[3] == one[3],
                   f"12a {label}, {name}: mesh certify_round == single device and host oracle")
+            check(not card or n_round == 2 * mv.dp,
+                  f"12a {label}, {name}: a mesh certify_round's certify_lanes launches == 2 dp ({n_round})")
             ms = tally("mesh", lambda: host_ms(
                 lambda: mv.certify_round(rnd.prepares, rnd.proposal_hash, rnd.seals, rnd.height)))
             mesh_out[f"{label}, {name}"] = {"mesh_certify_round_ms": ms, "single_certify_round_ms": one_ms,
                                             "recovery_launches_a_drain": rec, "dp": mv.dp,
                                             "lo_hi": [int(want_q[2]), int(want_q[3])]}
+            mesh_out[f"{label}, {name}"]["certify_lanes_launches"] = {
+                "sharded_certify": n_q, "drain": n_drain, "certify_round": n_round}
             log(f"[12a] {label}, {name}: masks, verdicts and lo/hi == one device and the host oracle; "
-                f"a drain {rec} recovery launches (dp {mv.dp}); certify_round median of 20 {ms:.3f} ms "
+                f"a drain {rec} recovery and {n_drain} certify_lanes launches (dp {mv.dp}), a sharded certify "
+                f"{n_q} certify_lanes launch, a certify_round {n_round}; certify_round median of 20 {ms:.3f} ms "
                 f"on the mesh, {one_ms:.3f} ms on one device")
     rnd, _, _ = next(iter(rounds.values()))
     lanes = [(rnd.proposal_hash, s) for s in rnd.seals]
@@ -1955,6 +1983,12 @@ def cluster_phase(report: dict, ident: str, counts, holds, rounds: dict, dev=Non
     check(sharded.describe()["sharded"] and all(np.array_equal(x, y) for x, y in zip(got, want)),
           "12a: the dispatcher's mesh route == its single-device route")
     no_host_fallback("12a")
+    prof = report.get("mesh_certify_round_profile")
+    if prof is not None:
+        out["mesh_certify_round_profile"] = prof
+        log(f"[12a] a profiled 100-validator mesh certify_round over {CLUSTER_MESH_SHARDS} shards (the "
+            f"--main-profile process): {prof['device_kernels']} device events, {prof['launch_calls']} launch "
+            f"calls, busy {prof['device_busy_ms']:.3f} ms: {[(n[:40], round(ms, 5)) for n, ms in prof['events']]}")
     out["mesh"] = mesh_out
     log(f"[12a] the dispatcher's mesh route ({sharded.dp} shards) == single device; "
         f"mesh launches {launched['mesh']}")
@@ -2462,16 +2496,27 @@ def main_profile() -> int:
     the digest at the two rounds' payloads and at 128 x 8 and 128 x 32
     blocks (20 launches each), the recovery at the two rounds' lanes (5
     each), keccak_f1600 at 256 states (50) -- and each round's
-    ``certify_round`` in a session right after.  The rounds are phase 3's
-    (the same seeds); the 128 x 8 and 128 x 32 blocks and the states are
-    seeded here.  Prints one JSON line."""
+    ``certify_round`` in a session right after, after one ``certify_round``
+    of a ``MeshBatchVerifier`` over 4 shards of the card (its device events
+    in launch order).  The rounds are phase 3's (the same seeds); the 128 x 8
+    and 128 x 32 blocks and the states are seeded here.  The kernels'
+    session is taken again, up to three times, where the profiler lost a
+    device event.  Before the sessions, ``certify_lanes``' launcher is
+    timed back to back at each of its three shapes (CUDA events over 200
+    launches, and the host clock of the 200 calls).  Run it against two checkouts in turn, alternating (A B
+    B A A B), in one call, to compare their kernels and launchers:
+
+        PYTHONSAFEPATH=1 PYTHONPATH=<checkout> python3 chip_smoke.py --main-profile
+
+    Prints the card's identity, then one JSON line."""
     from go_ibft_tpu_torch import convert
     from go_ibft_tpu_torch.bench import build_signed_round
     from go_ibft_tpu_torch.bench.engine import Committee, EngineRunner, check_height
     from go_ibft_tpu_torch.crypto.backend import ECDSABackend
     from go_ibft_tpu_torch.ops import certify_lanes, ecrecover, keccak_f1600, quorum
-    from go_ibft_tpu_torch.verify import DeviceBatchVerifier
+    from go_ibft_tpu_torch.verify import DeviceBatchVerifier, MeshBatchVerifier
 
+    print(gpu_identity(), flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(7)
     rounds = {"100v": build_signed_round(100, seed=0), "300v_30bad": build_signed_round(300, corrupt_frac=0.3, seed=0)}
@@ -2509,11 +2554,28 @@ def main_profile() -> int:
     schedules = [committee.schedule(h) for h in heights]
     check_height(committee, runner.run_height(heights[0], schedules[0]))
 
+    mesh = MeshBatchVerifier(verifiers["100v"]._validators, devices=[dev] * CLUSTER_MESH_SHARDS)
+
+    def mesh_certify():
+        rnd = rounds["100v"]
+        return mesh.certify_round(rnd.prepares, rnd.proposal_hash, rnd.seals, rnd.height)
+
     for _, _, _, fn in work:  # warm-up: builds, loads, first launches
         fn()
     for label in rounds:
         certify(label)
+    check(list(mesh_certify()[0]) == list(certify("100v")[0]), "the mesh certify_round's mask == one device's")
     torch.cuda.synchronize()
+    launcher = {}
+    for kernel, label, _, fn in work:
+        if kernel == "certify_lanes":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            host_us = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+            launcher[label] = {"events_ms": cuda_time_ms(fn, 200), "host_us": host_us}
 
     def run_all():
         for _, _, n, fn in work:
@@ -2521,25 +2583,38 @@ def main_profile() -> int:
                 fn()
             torch.cuda.synchronize()
 
-    prof = profile_call(run_all, ordered=True)
+    def split(prof):
+        """Each work item's mean time on the card a launch, or None where
+        the session lost a device event (the launch counters, not the
+        profiler, hold the path's launches)."""
+        queues, per_launch = {}, {}
+        for name, ms in prof["events"]:
+            queues.setdefault(next((k for k in ("keccak256_digest", "secp256k1_recover", "keccak_f1600",
+                                                "certify_lanes") if k in name), None), []).append(ms)
+        for kernel, label, n, _ in work:
+            times = queues.get(kernel, [])[:n]
+            queues[kernel] = queues.get(kernel, [])[n:]
+            if len(times) != n:
+                return None
+            per_launch.setdefault(kernel, {})[str(label)] = sum(times) / n
+        return per_launch
+
+    for sessions in range(1, 4):
+        per_launch = split(profile_call(run_all, ordered=True))
+        if per_launch is not None:
+            break
+    check(per_launch is not None, f"the profiler recorded every kernel launch of one of {sessions} sessions")
+    meshed = profile_call(mesh_certify, ordered=True)
     certified = {label: profile_call(lambda label=label: certify(label)) for label in rounds}
     ran = []
     height = profile_call(lambda: ran.append(runner.run_height(heights[1], schedules[1])))
     check_height(committee, ran[0])
-    per_launch: dict = {}
-    queues = {}
-    for name, ms in prof["events"]:
-        queues.setdefault(next((k for k in ("keccak256_digest", "secp256k1_recover", "keccak_f1600", "certify_lanes")
-                                if k in name), None), []).append(ms)
-    for kernel, label, n, _ in work:
-        times = queues.get(kernel, [])[:n]
-        queues[kernel] = queues.get(kernel, [])[n:]
-        check(len(times) == n, f"the profiler recorded {n} launches of {kernel} at {label} ({len(times)})")
-        per_launch.setdefault(kernel, {})[str(label)] = sum(times) / n
-    for call in (*certified.values(), height):
+    for call in (*certified.values(), height, meshed):
         call["top_kernels_ms"] = sorted(call.pop("by_name_ms").items(), key=lambda kv: -kv[1])[:5]
         call.pop("count_by_name")
-    print(json.dumps({"device_ms_per_launch": per_launch, "certify_round": certified, "height": height}), flush=True)
+    print(json.dumps({"device_ms_per_launch": per_launch, "sessions": sessions, "certify_round": certified,
+                      "height": height, "certify_lanes_launcher": launcher, "mesh_certify_round": meshed}),
+          flush=True)
     return 0
 
 
@@ -2792,10 +2867,18 @@ def main() -> int:
             for edges in edge_thresholds(ref):
                 hold_certify(c_args, edges, lanes, f"certify_lanes at 2 x {lanes} x {rows}, thresholds {edges}")
             hold_certify(c_args, [], None, f"certify_lanes mask alone at {2 * lanes} lanes, {rows} rows")
+    for lanes, rows, split in CERTIFY_EDGES:
+        c_args = certify_case(lanes, rows, lanes + rows + 1, dev)
+        phases = 1 if split is None else 2
+        ref = hold_certify(c_args, [(1, 0)] * phases, split, f"certify_lanes at the edge {lanes} x {rows}, {split}")
+        for edges in edge_thresholds(ref):
+            hold_certify(c_args, edges, split, f"certify_lanes at the edge {lanes} x {rows}, {split}, {edges}")
+        hold_certify(c_args, [], None, f"certify_lanes mask alone at the edge {lanes} x {rows}")
     log(f"[3] certify_lanes bit-exact against plain on the three rounds' lanes (no phase, one, two; "
         f"thresholds at each phase's power - 1, the power, + 1) and on seeded lanes at 2 x "
         f"{CERTIFY_LANES} lanes x {CERTIFY_ROWS} rows (duplicate rows with power, sender spam, "
-        f"thr_hi >= 2**15) in {time.perf_counter() - t0:.1f}s")
+        f"thr_hi >= 2**15) and at the cluster's edges (lanes, rows, split) {CERTIFY_EDGES} in "
+        f"{time.perf_counter() - t0:.1f}s")
     report["max_abs_err"] = err
 
     # -- 4. the 100-validator round through both entry points ----------
@@ -2943,6 +3026,7 @@ def main() -> int:
             "ms": cuda_time_ms(lambda a=c_args, t=thresholds, p=split: certify_lanes.launch(*a, t, p), 200),
             "device_ms_per_launch": per_launch["certify_lanes"][label],
             "plain_ms": cuda_time_ms(lambda a=c_args, t=thresholds, p=split: certify_lanes.certify_plain(*a, t, p), 20),
+            "launcher_host_us": profiled["certify_lanes_launcher"][label]["host_us"],
             **bound(nbytes, ops),
         }
     # The recovery at growing lane counts: the 300-validator round's 1,024
@@ -3002,6 +3086,10 @@ def main() -> int:
         f"{height['device_kernels']} kernels, {height['launch_calls']} launch calls, device busy "
         f"{height['device_busy_ms']:.3f} ms of {height['profiled_wall_ms']:.3f} ms")
     report["height_profile"] = height
+    report["mesh_certify_round_profile"] = profiled["mesh_certify_round"]
+    for label, t in profiled["certify_lanes_launcher"].items():
+        log(f"[7] certify_lanes' launcher at {label}, back to back: {t['host_us']:.2f} us of host a call, "
+            f"{t['events_ms'] * 1e3:.2f} us a launch (events)")
     kern_dev_ms = per_launch["keccak_f1600"]["256"]
     timing["keccak_f1600"][256]["device_ms_per_launch"] = kern_dev_ms
     log(f"[7] keccak_f1600 at B=256: {kern_dev_ms * 1e3:.2f} us on the card per launch (profiler)")

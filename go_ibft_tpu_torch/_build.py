@@ -66,7 +66,7 @@ SIGNATURES = {
     "certify_lanes": {
         "certify_lanes": (
             [_P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-             ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P],
+             ctypes.c_longlong] + [ctypes.c_longlong] * 4 + [_P] * 4 + [_P, _P],
             ctypes.c_int,
         ),
     },

@@ -53,7 +53,8 @@ _CERTIFY = "certify_lanes"
 # The CUDA sources (csrc/<name>.cu) each family's kernels come from.
 # "ecdsa_recover" is also the verifier's mask dispatch (``_program_of``):
 # the recovery, then ``certify_lanes`` with no phase; a warmed family has
-# both built.
+# both built.  The mesh families end in ``certify_lanes`` too: one launch
+# on the first device for the sharded certify, one a shard for the mask.
 _SOURCES: Dict[str, Tuple[str, ...]] = {
     "bls_aggregate_verify": (_BLS,),
     "bls_g2_merge_tree": (_BLS,),
@@ -65,8 +66,8 @@ _SOURCES: Dict[str, Tuple[str, ...]] = {
     "ecdsa_recover": (_RECOVER, _CERTIFY),
     "ecmul2_base": (),
     "ici_tick_8n": (_KECCAK,),  # family_of keeps the node suffix
-    "mesh_quorum_certify": (_KECCAK, _RECOVER),
-    "mesh_verify_mask": (_RECOVER,),
+    "mesh_quorum_certify": (_KECCAK, _RECOVER, _CERTIFY),
+    "mesh_verify_mask": (_RECOVER, _CERTIFY),
 }
 
 

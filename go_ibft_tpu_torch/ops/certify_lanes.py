@@ -32,7 +32,6 @@ each, with ``got = hi * 2**16 + lo`` a phase's counted power.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -48,30 +47,44 @@ _MAX_PHASES = 2
 
 def _check(addr, ok, claimed, live, table, plo, phi, thresholds, split) -> int:
     """Validate the inputs; returns the first phase's lane count."""
-    n = ok.shape[0] if ok.dim() == 1 else -1
-    if ok.dim() != 1 or live.shape != ok.shape:
+    lanes = ok.shape
+    if len(lanes) != 1 or live.shape != lanes:
         raise ValueError(f"ok and live must be (n,), got {tuple(ok.shape)} and {tuple(live.shape)}")
     if ok.dtype != torch.bool or live.dtype != torch.bool:
         raise TypeError(f"ok and live must be bool, got {ok.dtype} and {live.dtype}")
-    for name, t, shape in (("addr", addr, (n, 5)), ("claimed", claimed, (n, 5))):
-        if tuple(t.shape) != shape or t.dtype != torch.int32:
-            raise ValueError(f"{name} must be an int32 {shape}, got {t.dtype} {tuple(t.shape)}")
-    if table.dim() != 2 or table.shape[1] != 5 or table.dtype != torch.int32:
-        raise ValueError(f"table must be an int32 (V, 5), got {table.dtype} {tuple(table.shape)}")
-    if len(thresholds) > _MAX_PHASES:
-        raise ValueError(f"at most {_MAX_PHASES} phases, got {len(thresholds)}")
-    if thresholds:
-        rows = (table.shape[0],)
+    n = lanes[0]
+    for name, t in (("addr", addr), ("claimed", claimed)):
+        if t.shape != (n, 5) or t.dtype != torch.int32:
+            raise ValueError(f"{name} must be an int32 {(n, 5)}, got {t.dtype} {tuple(t.shape)}")
+    rows = table.shape
+    if len(rows) != 2 or rows[1] != 5 or table.dtype != torch.int32:
+        raise ValueError(f"table must be an int32 (V, 5), got {table.dtype} {tuple(rows)}")
+    phases = len(thresholds)
+    if phases > _MAX_PHASES:
+        raise ValueError(f"at most {_MAX_PHASES} phases, got {phases}")
+    if phases:
         for name, t in (("plo", plo), ("phi", phi)):
-            if t is None or tuple(t.shape) != rows or t.dtype != torch.int32:
-                raise ValueError(f"{name} must be an int32 {rows}, got {None if t is None else tuple(t.shape)}")
-        for half in (h for pair in thresholds for h in pair):
-            if isinstance(half, torch.Tensor) and (half.numel() != 1 or half.dtype != torch.int32):
-                raise ValueError(f"a threshold tensor must be one int32, got {half.dtype} {tuple(half.shape)}")
-    first = n if len(thresholds) < 2 else (n // 2 if split is None else split)
+            if t is None or t.shape != rows[:1] or t.dtype != torch.int32:
+                raise ValueError(f"{name} must be an int32 {(rows[0],)}, got {None if t is None else tuple(t.shape)}")
+        for pair in thresholds:
+            for half in pair:
+                if isinstance(half, torch.Tensor) and (half.numel() != 1 or half.dtype != torch.int32):
+                    raise ValueError(f"a threshold tensor must be one int32, got {half.dtype} {tuple(half.shape)}")
+    first = n if phases < 2 else (n // 2 if split is None else split)
     if not 0 <= first <= n:
         raise ValueError(f"split {split} outside 0..{n}")
     return first
+
+
+# The kernel's entry point, bound at its first launch.
+_entry = None
+
+
+def _kernel():
+    global _entry
+    if _entry is None:
+        _entry = _build.load("certify_lanes").certify_lanes
+    return _entry
 
 
 def launch(
@@ -87,49 +100,54 @@ def launch(
 ) -> _Out:
     """Run ``csrc/certify_lanes.cu``; returns ``(mask, reached, lo, hi)``.
 
-    Every tensor is a contiguous CUDA tensor on one card.  Outputs are
-    allocated with ``torch.empty``; one launch on PyTorch's current stream,
-    no synchronisation.  No lane launches nothing: the phases' sums are then
-    0 against their thresholds.  Raises on any fault, a CPU tensor included.
+    Every tensor is a contiguous CUDA tensor on one card.  The outputs are
+    views of one ``torch.empty`` buffer; one launch on PyTorch's current
+    stream, no synchronisation.  No lane launches nothing: the phases' sums
+    are then 0 against their thresholds.  Raises on any fault, a CPU tensor
+    included.
     """
     first = _check(addr, ok, claimed, live, table, plo, phi, thresholds, split)
     dev = ok.device
-    tensors = [addr, ok, claimed, live, table] + ([plo, phi] if thresholds else [])
-    halves = [h for pair in thresholds for h in pair]
-    tensors += [h for h in halves if isinstance(h, torch.Tensor)]
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError(
-            f"the certify kernel takes CUDA tensors on one card, got {[str(t.device) for t in tensors]}"
-        )
+    phases = len(thresholds)
+    tensors = (addr, ok, claimed, live, table, plo, phi) if phases else (addr, ok, claimed, live, table)
+    values, pointers, k = [0, 0, 0, 0], [None, None, None, None], 0
+    for pair in thresholds:
+        for half in pair:
+            if isinstance(half, torch.Tensor):
+                tensors += (half,)
+                pointers[k] = half.data_ptr()
+            else:
+                values[k] = int(half)
+            k += 1
+    if not ok.is_cuda or any(t.device != dev for t in tensors):
+        raise ValueError(f"the certify kernel takes CUDA tensors on one card, got {[str(t.device) for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("certify inputs must be contiguous")
-    n, phases = ok.shape[0], len(thresholds)
-    mask = torch.empty((n,), dtype=torch.bool, device=dev)
-    reached = torch.empty((phases,), dtype=torch.bool, device=dev)
-    lo = torch.empty((phases,), dtype=torch.int32, device=dev)
-    hi = torch.empty((phases,), dtype=torch.int32, device=dev)
+    n = ok.shape[0]
+    # One buffer in the kernel's layout: lo, hi (int32 a phase), reached, mask.
+    out = torch.empty((9 * phases + n,), dtype=torch.bool, device=dev)
+    lo, hi, reached, mask = out.split_with_sizes((4 * phases, 4 * phases, phases, n))
+    lo, hi = lo.view(torch.int32), hi.view(torch.int32)
     if n == 0:
         pairs = [(int(h_lo), int(h_hi)) for h_lo, h_hi in thresholds]
         reached = torch.tensor([t_hi < 0 or (t_hi == 0 and t_lo <= 0) for t_lo, t_hi in pairs],
                                dtype=torch.bool, device=dev)
         return mask, reached, torch.zeros_like(lo), torch.zeros_like(hi)
-    lib = _build.load("certify_lanes")
-    values = (ctypes.c_longlong * (2 * _MAX_PHASES))(
-        *[0 if isinstance(h, torch.Tensor) else int(h) for h in halves]
+    args = (
+        addr.data_ptr(), ok.data_ptr(), claimed.data_ptr(), live.data_ptr(), n,
+        table.data_ptr(), plo.data_ptr() if phases else None, phi.data_ptr() if phases else None,
+        table.shape[0], phases, first, *values, *pointers, out.data_ptr(),
     )
-    at = (ctypes.c_void_p * (2 * _MAX_PHASES))(
-        *[h.data_ptr() if isinstance(h, torch.Tensor) else None for h in halves]
-    )
-    # The tensors' card is made current for the launch: the stream and the
-    # kernel's module belong to it, whichever card the caller's is.
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.certify_lanes(
-            addr.data_ptr(), ok.data_ptr(), claimed.data_ptr(), live.data_ptr(), n,
-            table.data_ptr(), plo.data_ptr() if phases else None, phi.data_ptr() if phases else None,
-            table.shape[0], phases, first, ctypes.addressof(values), ctypes.addressof(at),
-            mask.data_ptr(), reached.data_ptr(), lo.data_ptr(), hi.data_ptr(), stream,
-        )
+    fn = _kernel()
+    # The card's current stream as a raw pointer (no Stream object made).
+    # It and the kernel's module belong to the tensors' card, which is made
+    # current for the launch where the caller's card is another.
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"certify_lanes launch failed: cudaError {rc}")
     return mask, reached, lo, hi
@@ -182,7 +200,7 @@ def certify(
     """Mask and quorum: the kernel on a CUDA tensor, the plain version on a
     CPU tensor.  No fallback between the two: a failed build or launch
     raises."""
-    if ok.device.type == "cuda":
+    if ok.is_cuda:
         out = launch(addr, ok, claimed, live, table, plo, phi, thresholds, split)
         if ok.numel():  # no lane launches nothing
             _build.count_launch(certify)

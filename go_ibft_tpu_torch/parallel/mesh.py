@@ -8,19 +8,26 @@ slice of the validator table (``vp``), and three ``psum``s assemble the
 answer.  Here the same work is laid out by hand, in one process (the JAX
 package is single-controller too; no ``torch.distributed``):
 
-* lane shard ``i`` runs the single-device per-lane functions of
-  :mod:`go_ibft_tpu_torch.ops.quorum` on device ``(i, 0)`` — the digest
-  and recovery kernels on the card, their plain versions on the CPU;
-* table shard ``j`` meets lane shard ``i`` on device ``(i, j)`` in
-  :func:`~go_ibft_tpu_torch.ops.quorum.membership_eq`;
-* the ``psum`` s become explicit reductions on the first device: a sender
-  is a member if any table shard matched it (an OR over ``vp``), a
-  validator is counted if any lane shard carried its valid message (an OR
-  over ``dp``), and the 16/15-bit power halves are summed over ``vp`` with
-  the carry fold of :func:`~go_ibft_tpu_torch.ops.quorum.power_reduce`.
+* lane shard ``i`` runs the single-device per-lane work of
+  :mod:`go_ibft_tpu_torch.ops.quorum` on device ``(i, 0)`` -- the digest
+  (envelopes) and the recovery, each one kernel launch on the card, their
+  plain versions on the CPU;
+* the ``psum`` s become one launch of the ``certify_lanes`` kernel
+  (:mod:`go_ibft_tpu_torch.ops.certify_lanes`) on the first device, over
+  every shard's recovered addresses and the whole table: a sender is a
+  member if any row of any table shard is its address (the OR over
+  ``vp``), a validator is counted once if any lane shard carried its valid
+  message (the OR over ``dp``), every equal row counts, also across table
+  shards, and the 16/15-bit power halves are summed with the carry fold of
+  :func:`~go_ibft_tpu_torch.ops.quorum.power_reduce`.  The count needs
+  every valid lane against every row in one place anyway, so that launch
+  also gives the mask; a launch a shard would repeat its work.  On the CPU
+  it is the kernel's plain version.
 
 Every shard's kernels are launched before any result is read, so the
-devices overlap.  The results are bit-identical to
+devices overlap; nothing on the card runs an eager compare, ``any``,
+``where`` or sum.  The results are bit-identical to the JAX package's
+``mesh_quorum_certify`` / ``mesh_seal_quorum_certify`` and to
 :func:`~go_ibft_tpu_torch.ops.quorum.quorum_certify` /
 :func:`~go_ibft_tpu_torch.ops.quorum.seal_quorum_certify` on one device,
 for voting powers < 2**31 (the split-halves exactness bound).
@@ -38,7 +45,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops import quorum
+from ..ops import certify_lanes, quorum
 from ..utils.device import resolve_device
 
 __all__ = [
@@ -150,59 +157,42 @@ def _split(t: torch.Tensor, k: int, what: str) -> list:
     return list(torch.chunk(t, k, dim=0)) if k > 1 else [t]
 
 
-def _certify(mesh: Mesh, sig_checks: Callable, lane_args, claimed, table_w, live, powers_lo, powers_hi,
+def _certify(mesh: Mesh, zw_of: Callable, lane_args, claimed, table_w, live, powers_lo, powers_hi,
              thr_lo, thr_hi):
-    """Shared body of the two sharded certify programs: ``sig_checks(*lane
-    shard args, claimed shard, live shard)`` on each lane shard's device,
-    then the explicit reductions (see the module docstring)."""
+    """Shared body of the two sharded certify programs: on each lane shard's
+    device ``zw_of(*lane shard args but r, s, v)`` (the digest, or the
+    proposal hash as it is) and the recovery; then ``certify_lanes`` on the
+    first device over the gathered lanes (see the module docstring)."""
     dp, vp = mesh.devices.shape
     first = mesh.devices[0, 0]
-    lanes = [_split(a, dp, "lanes") for a in (*lane_args, claimed, live)]
-    tables = _split(table_w, vp, "table")
-    plos = _split(powers_lo, vp, "powers_lo")
-    phis = _split(powers_hi, vp, "powers_hi")
-    # Launch every lane shard's kernels first (signature checks, then the
-    # membership matrices), read nothing until all are queued.
-    sig_ok, eqs = [], []
+    for t, k, what in ((claimed, dp, "lanes"), (live, dp, "lanes"), (table_w, vp, "table"),
+                       (powers_lo, vp, "powers_lo"), (powers_hi, vp, "powers_hi")):
+        _split(t, k, what)  # the JAX program's shard shapes, checked
+    shards = [_split(a, dp, "lanes") for a in lane_args]
+    # Launch every lane shard's kernels first; read nothing until all are queued.
+    recovered = []
     for i in range(dp):
         dev = mesh.devices[i, 0]
-        shard = [a[i].to(dev) for a in lanes]
-        sig_ok.append(sig_checks(*shard))
-        eqs.append([
-            quorum.membership_eq(shard[-2].to(mesh.devices[i, j]), tables[j].to(mesh.devices[i, j]))
-            for j in range(vp)
-        ])
-    oks = []
-    for i in range(dp):
-        dev = mesh.devices[i, 0]
-        member = torch.stack([torch.any(eqs[i][j], dim=-1).to(dev) for j in range(vp)]).any(dim=0)
-        oks.append(sig_ok[i] & member)
-    lo = torch.zeros((), dtype=torch.int32, device=first)
-    hi = torch.zeros((), dtype=torch.int32, device=first)
-    for j in range(vp):
-        counted = torch.stack([
-            torch.any(eqs[i][j] & oks[i].to(mesh.devices[i, j])[:, None], dim=0).to(first)
-            for i in range(dp)
-        ]).any(dim=0)
-        plo, phi = plos[j].to(first), phis[j].to(first)
-        zero = torch.zeros_like(plo)
-        lo = lo + torch.sum(torch.where(counted, plo, zero), dtype=torch.int32)
-        hi = hi + torch.sum(torch.where(counted, phi, zero), dtype=torch.int32)
-    hi = hi + (lo >> 16)
-    lo = lo & 0xFFFF
-    thr_lo, thr_hi = (t.to(first) if torch.is_tensor(t) else t for t in (thr_lo, thr_hi))
-    reached = (hi > thr_hi) | ((hi == thr_hi) & (lo >= thr_lo))
-    ok = torch.cat([o.to(first) for o in oks])
-    return ok, reached, lo, hi
+        *zw_args, r, s, v = (a[i].to(dev) for a in shards)
+        recovered.append(quorum._recover_address(zw_of(*zw_args), r, s, v))
+    addr, ok = ([part[k].to(first) for part in recovered] for k in (0, 1))
+    addr, ok = (parts[0] if dp == 1 else torch.cat(parts) for parts in (addr, ok))
+    thr = tuple(t.to(first) if torch.is_tensor(t) else t for t in (thr_lo, thr_hi))
+    mask, reached, lo, hi = certify_lanes.certify(
+        addr, ok, claimed.to(first), live.to(first), table_w.to(first), powers_lo.to(first),
+        powers_hi.to(first), [thr],
+    )
+    return mask, reached[0], lo[0], hi[0]
 
 
 def mesh_quorum_certify(mesh: Mesh):
     """Sharded :func:`~go_ibft_tpu_torch.ops.quorum.quorum_certify` (same
     arguments and outputs, bit-identical results; the outputs on the
-    mesh's first device)."""
+    mesh's first device).  On the card: a digest and a recovery launch a
+    lane shard, then one ``certify_lanes`` launch."""
 
     def step(blocks, nblocks, r, s, v, sender_w, table_w, live, powers_lo, powers_hi, thr_lo, thr_hi):
-        return _certify(mesh, quorum.sender_sig_checks, (blocks, nblocks, r, s, v), sender_w, table_w, live,
+        return _certify(mesh, quorum.digest_words, (blocks, nblocks, r, s, v), sender_w, table_w, live,
                         powers_lo, powers_hi, thr_lo, thr_hi)
 
     return step
@@ -212,7 +202,7 @@ def mesh_seal_quorum_certify(mesh: Mesh):
     """Sharded :func:`~go_ibft_tpu_torch.ops.quorum.seal_quorum_certify`."""
 
     def step(hash_zw, r, s, v, signer_w, table_w, live, powers_lo, powers_hi, thr_lo, thr_hi):
-        return _certify(mesh, quorum.seal_sig_checks, (hash_zw, r, s, v), signer_w, table_w, live,
+        return _certify(mesh, lambda zw: zw, (hash_zw, r, s, v), signer_w, table_w, live,
                         powers_lo, powers_hi, thr_lo, thr_hi)
 
     return step

@@ -9,9 +9,9 @@ dispatches place packed lanes across the devices of a
 * **lane-parallel shards** — the lane axis splits evenly over the mesh's
   devices (every entry of the mesh, row-major; the table is copied to each
   device); each shard runs the UNCHANGED single-device work on its own
-  device — one launch of the digest kernel for an envelope chunk and one
-  of the recovery kernel, then the membership compare — so a drain makes
-  one recovery launch per shard.  Every shard's inputs are uploaded, then
+  device — one launch of the digest kernel for an envelope chunk, one of
+  the recovery kernel and one of ``certify_lanes`` for the mask — so a
+  drain makes one recovery and one ``certify_lanes`` launch per shard.  Every shard's inputs are uploaded, then
   every shard's kernels launched, and only then is any result read, so
   the devices overlap;
 * **masked dummy-lane padding** — lane counts pad to ``bucket x dp`` so
@@ -94,9 +94,11 @@ def _fields(lanes) -> Dict[str, np.ndarray]:
 class ShardedMask:
     """The lane-sharded verification mask over one mesh: signature validity
     AND membership in the table, per lane, the function
-    :meth:`DeviceBatchVerifier._mask` computes on one device; each shard
-    still computes it with eager ops after its recovery launch (not the
-    ``certify_lanes`` kernel).
+    :meth:`DeviceBatchVerifier._mask` computes on one device (the JAX
+    package's ``_mask_fn`` a shard).  Each shard runs
+    :func:`~go_ibft_tpu_torch.ops.quorum.certify_zw` for the mask alone on
+    its own device: on the card the digest (envelopes), the recovery and
+    ``certify_lanes``, one launch each; on the CPU their plain versions.
 
     :meth:`dispatch` takes a packed host chunk (:class:`_SenderLanes` or
     :class:`_DigestLanes`, numpy, a multiple of ``dp`` lanes) and the
@@ -132,16 +134,14 @@ class ShardedMask:
             for sh, dev in zip(shards, self.devices)
         ]
         # 2. Every shard's kernels: the digest (envelopes), the recovery and
-        #    the membership compare.
+        #    the mask's certify_lanes.
         oks = []
         for sh, up, table in zip(shards, ups, tables):
             if isinstance(sh, _SenderLanes):
                 inputs = pack_sender_digest_rows(sh, lambda name, a, up=up: up[name])
             else:
                 inputs = tuple(up[f] for f in _DIGEST_FIELDS)
-            zw, r, s, v, claimed, live = inputs
-            member = torch.any(quorum.membership_eq(claimed, table), dim=-1)
-            oks.append(quorum.sig_checks_zw(zw, r, s, v, claimed, live) & member)
+            oks.append(quorum.certify_zw(*inputs, table)[0])
         # 3. The copies back, each ordered after its shard's kernels.
         handle = []
         for ok, dev in zip(oks, self.devices):

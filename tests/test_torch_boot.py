@@ -101,7 +101,9 @@ def test_family_of_strips_shape_suffixes_iteratively():
 def test_program_sources_name_the_kernels_each_family_launches():
     assert registry.program_sources("digest_words_8l") == ("keccak_f1600",)
     assert registry.program_sources("round_certify_8l") == ("keccak_f1600", "secp256k1_recover", "certify_lanes")
-    assert registry.program_sources("mesh_verify_mask_8l_dp8") == ("secp256k1_recover",)
+    assert registry.program_sources("mesh_verify_mask_8l_dp8") == ("secp256k1_recover", "certify_lanes")
+    assert registry.program_sources("mesh_quorum_certify_8l_dp2") == ("keccak_f1600", "secp256k1_recover",
+                                                                       "certify_lanes")
     assert registry.program_sources("bls_aggregate_verify_8v") == ("bls12_381",)
     assert registry.program_sources("ecmul2_base_8l") == ()  # the plain function
     for program in registry.program_registry():

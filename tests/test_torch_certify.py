@@ -14,7 +14,9 @@ The cases are made from numpy seeds: tables that repeat an address with a
 nonzero power, duplicate-sender spam, all-dead lanes, lanes whose recovery
 failed or recovered another address, non-members, 0, 1 and 2 phases,
 thresholds at the counted power - 1, the power and + 1, at 0 and with
-``thr_hi`` >= 2**15, and tables past one 2,048-row tile.  Tolerance: exact
+``thr_hi`` >= 2**15, tables past one 2,048-row tile, and the edges of a
+phase spread over a cluster of 8 blocks (fewer lanes than blocks, one lane,
+an empty phase, more lanes a block than threads).  Tolerance: exact
 equality of the mask, the verdicts and both power halves.
 """
 
@@ -96,6 +98,20 @@ CASES = {
     "no_members": (9, 16, 8, {"members": 0.0}, 1, None),
     "past_one_tile": (10, 96, 2100, {"dup_rows": 8}, 2, None),
     "past_one_tile_mask_only": (11, 96, 2100, {}, 0, None),
+    # The cluster's edges (a phase on 8 blocks): fewer lanes than blocks,
+    # one lane, an empty phase (split at 0 and at n), 2,049 rows (a second
+    # tile of one row), rows repeated with power up to 2**31 - 1, and more
+    # lanes a block than a block has threads.
+    "phase_fewer_lanes_than_blocks": (15, 10, 64, {}, 2, 3),
+    "one_lane": (16, 1, 8, {"spam": 0, "members": 1.0}, 1, None),
+    "one_lane_two_phases": (17, 1, 8, {"spam": 0, "members": 1.0}, 2, 1),
+    "one_lane_mask_only": (18, 1, 8, {"spam": 0, "members": 1.0}, 0, None),
+    "split_at_zero": (19, 40, 128, {}, 2, 0),
+    "split_at_n": (20, 40, 128, {}, 2, 40),
+    "rows_2049": (21, 96, 2049, {"dup_rows": 6}, 2, 48),
+    "rows_2049_mask_only": (22, 96, 2049, {"dup_rows": 6}, 0, None),
+    "rows_repeated_with_big_power": (23, 64, 512, {"dup_rows": 12, "big": True}, 2, 30),
+    "lanes_past_one_round": (24, 8400, 8, {"spam": 40}, 2, 4200),
 }
 
 

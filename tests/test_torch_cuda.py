@@ -382,6 +382,116 @@ def test_certify_launcher_refuses_what_it_does_not_take(cuda_device):
     assert mask.shape == (0,) and reached.tolist() == [True, False] and lo.tolist() == hi.tolist() == [0, 0]
 
 
+def _edge_case(n, v, seed, device, dup=(0, 1)):
+    """Seeded certify inputs of any size (``_certify_case`` needs 16 lanes
+    or more): members, outsiders, failed recoveries, dead lanes, the first
+    lane repeated last, table rows ``dup`` equal, each with its own power,
+    powers up to 2**31 - 1."""
+    rng = np.random.default_rng(seed)
+    table = rng.integers(0, 2**32, size=(v, 5), dtype=np.uint32)
+    if v > max(dup):
+        table[list(dup)] = table[dup[0]]
+    powers = rng.integers(1, 2**31, size=v)
+    claimed = table[rng.integers(0, v, size=n)]
+    claimed[rng.random(n) < 0.1] ^= np.uint32(1 << 9)
+    if n > 1:
+        claimed[-1] = claimed[0]
+    addr = claimed.copy()
+    addr[rng.random(n) < 0.05, 4] ^= np.uint32(1)
+    ok, live = rng.random(n) < 0.9, rng.random(n) < 0.95
+    words = [torch.from_numpy(a.view(np.int32)).to(device) for a in (addr, claimed, table)]
+    flags = [torch.from_numpy(a).to(device) for a in (ok, live)]
+    halves = [torch.from_numpy(a.astype(np.int32)).to(device) for a in (powers & 0xFFFF, powers >> 16)]
+    return (words[0], flags[0], words[1], flags[1], words[2], *halves)
+
+
+# The cluster's edges: (lanes, rows, split) with two phases split there, or
+# None for one phase.  A phase with fewer lanes than the cluster's 8 blocks,
+# one lane, a split at 0 and at n (an empty phase), a table past one
+# 2,048-row tile, and a row repeated with power across the table.
+CLUSTER_EDGES = {
+    "fewer_lanes_than_blocks": (10, 64, 3),
+    "one_lane": (1, 8, None),
+    "one_lane_two_phases": (1, 8, 1),
+    "split_at_zero": (40, 128, 0),
+    "split_at_n": (40, 128, 40),
+    "rows_2049": (96, 2049, 48),
+    "row_repeated_with_power": (64, 512, 30),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", list(CLUSTER_EDGES))
+def test_certify_lanes_matches_plain_at_the_cluster_edges(cuda_device, edge):
+    n, rows, split = CLUSTER_EDGES[edge]
+    dup = (0, rows - 1) if edge == "row_repeated_with_power" else (0, 1)
+    args = _edge_case(n, rows, n + rows, cuda_device, dup=dup)
+    plain = certify_lanes.certify_plain(*args, [(1, 0)] * (1 if split is None else 2), split)
+    gots = [int(h) * 65536 + int(lo) for lo, h in zip(plain[2].tolist(), plain[3].tolist())]
+    cases = [([], None)] + [([((g + d) & 0xFFFF, (g + d) >> 16) for g in gots], split) for d in (-1, 0, 1)]
+    for thresholds, at in cases:
+        before = certify_lanes.certify.launches
+        ours = certify_lanes.certify(*args, thresholds, at)
+        torch.cuda.synchronize()
+        assert certify_lanes.certify.launches == before + 1
+        ref = certify_lanes.certify_plain(*args, thresholds, at)
+        for a, b in zip(ours, ref):
+            assert torch.equal(a, b), (edge, thresholds, at)
+
+
+@pytest.mark.cuda
+def test_mesh_certify_on_the_card_launches_only_the_kernels(cuda_device, monkeypatch):
+    """``mesh_quorum_certify`` / ``mesh_seal_quorum_certify`` over ``[cuda:0]
+    * 4`` (vp 1 and 2) and a ``MeshBatchVerifier`` drain: on a card tensor
+    neither reaches ``membership_eq``, ``claimed_checks``, ``power_reduce``,
+    ``torch.any`` or ``torch.where`` (each patched to record such a call);
+    a sharded certify is a digest (envelopes) and a recovery launch a shard
+    and one ``certify_lanes`` launch, a drain one ``certify_lanes`` launch a
+    shard; the results equal one device's."""
+    from go_ibft_tpu_torch.parallel import make_mesh, mesh_quorum_certify, mesh_seal_quorum_certify
+    from go_ibft_tpu_torch.verify import MeshBatchVerifier
+
+    w = build_round_workload(100, corrupt_frac=0.3, seed=5, pad_lanes=128)
+    a = convert.round_args(w, device=cuda_device)
+    tail = (a[14], a[15], int(a[16]), int(a[17]))
+    q_args = (a[0], a[1], a[2], a[3], a[4], a[5], a[13], a[6]) + tail
+    s_args = (a[7], a[8], a[9], a[10], a[11], a[13], a[12]) + tail
+    want = [[x.cpu() for x in tq.quorum_certify(*q_args)], [x.cpu() for x in tq.seal_quorum_certify(*s_args)]]
+    on_card = []
+
+    def watch(name, fn):
+        def wrapped(*args, **kw):
+            if any(isinstance(t, torch.Tensor) and t.is_cuda for t in (*args, *kw.values())):
+                on_card.append(name)
+            return fn(*args, **kw)
+        return wrapped
+
+    for name in ("membership_eq", "claimed_checks", "power_reduce"):
+        monkeypatch.setattr(tq, name, watch(name, getattr(tq, name)))
+    monkeypatch.setattr(torch, "any", watch("torch.any", torch.any))
+    monkeypatch.setattr(torch, "where", watch("torch.where", torch.where))
+    monkeypatch.setattr(torch.Tensor, "any", watch("Tensor.any", torch.Tensor.any))
+    counters = (tq.digest_words, ecrecover.recover, certify_lanes.certify)
+    for vp in (1, 2):
+        mesh = make_mesh(4, vp=vp, devices=[cuda_device] * 4)
+        dp = mesh.shape["dp"]
+        for fn, args, ref, digests in ((mesh_quorum_certify, q_args, want[0], dp),
+                                       (mesh_seal_quorum_certify, s_args, want[1], 0)):
+            before = [c.launches for c in counters]
+            got = [x.cpu() for x in fn(mesh)(*args)]
+            assert [c.launches - b for c, b in zip(counters, before)] == [digests, dp, 1]
+            for g, x in zip(got, ref):
+                assert torch.equal(g, x)
+    rnd = build_signed_round(100, corrupt_frac=0.3, seed=0)
+    src = ECDSABackend.static_validators({m.sender: 1 for m in rnd.prepares})
+    mesh_v = MeshBatchVerifier(src, devices=[cuda_device] * 4)
+    before = [c.launches for c in counters]
+    mask = mesh_v.verify_senders(rnd.prepares)
+    assert [c.launches - b for c, b in zip(counters, before)] == [4, 4, 4]
+    assert on_card == []
+    np.testing.assert_array_equal(mask, rnd.expected_prepare_mask)
+
+
 # Modules the walk below must reach: the chain layer, the chaos tools, the
 # host tracing tools and the speculator, besides everything else.
 CHAIN_SLICE_MODULES = (
