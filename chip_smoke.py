@@ -18,6 +18,13 @@ Phases, in order (any failure exits non-zero and prints no result):
    every adversarial lane of ``bench/lanes.py``), each at the batch sizes
    the path uses and beyond, the recovery also against the host oracle;
    then the digest and the recovery on the two rounds' own inputs;
+   ``secp256k1_ecmul2`` and ``secp256k1_verify`` (the ``k1*G + k2*Q``
+   kernel's two entries) once on ``bench/lanes.py::build_verify_lanes``
+   (off-curve keys, ``x = r + N``, out-of-range ``r``/``s``, infinity and
+   the scalar edges among them), then ``ops.secp256k1.ecmul2_base`` and
+   ``ecdsa_verify`` at 1,024 of those lanes (one launch each, counted from
+   0): every row equal to its lane's plain result and, on the curve, to
+   the host oracle;
    ``certify_lanes`` on the three rounds' recovered lanes (phases 4-6's;
    the mask alone, one phase, two, and thresholds at each phase's counted
    power - 1, the power and + 1) and on seeded lanes at every lane bucket
@@ -40,7 +47,10 @@ Phases, in order (any failure exits non-zero and prints no result):
    32 blocks (and its time on the card per launch, profiler), and the
    recovery at 1 to 16,384 lanes;
    ``certify_lanes`` at the two rounds' lanes and at 2 x 2,048 lanes x
-   2,048 rows, and its launcher's host time back to back; time phases 4-5 with CUDA events and the host clock (median
+   2,048 rows, and its launcher's host time back to back; both entries of
+   the ``k1*G + k2*Q`` kernel at 8, 256 and 1,024 lanes (the plain
+   versions at 8), and the registry's ``ecmul2_base_8l`` call profiled: one
+   kernel, no eager ladder; time phases 4-5 with CUDA events and the host clock (median
    of 20 calls after warm-up), and profile one 100-validator call: device
    kernels (fewer than 10,000), launch calls (at most 5), device busy time,
    idle share, and one engine height among 100 validators (the profiler's
@@ -141,9 +151,11 @@ Phases, in order (any failure exits non-zero and prints no result):
    fresh kernel build cache, every registry family restored on the card,
    then one height of a 3-validator cluster verifying on the card): the cold
    leg pays the ``nvcc`` builds, the cached leg reports zero cold programs
-   and zero compile events; (b) ``ChainRunner.warm_start`` over a WAL of 8
+   and zero compile events, and each leg's ``ecmul2_base_8l`` time and
+   status is printed; (b) ``ChainRunner.warm_start`` over a WAL of 8
    finalized 100-validator heights with a scheduler handle on the card: the
-   main path's four families restored, height 8 recovered, a verdict seeded
+   main path's four families and ``ecmul2_base_8l`` restored (one
+   ``secp256k1_ecmul2`` launch), height 8 recovered, a verdict seeded
    a WAL seal, those seals re-verified with no launch, the kernels held at
    the registry's inputs; (c) where ``grpc`` imports, 4 ``python -m
    go_ibft_tpu_torch.node`` processes on the card under ``sim/fleet.py``'s
@@ -160,7 +172,10 @@ Phases, in order (any failure exits non-zero and prints no result):
    config-#4 call's, ``bls_chain_launches_per_height`` phase 10's chain's,
    ``serving_launches`` phase 11's, ``mesh_launches`` phase 12 (a)'s,
    ``cluster_launches`` phase 12 (c)'s and ``boot_launches`` phase 13
-   (b)'s), then the result line.
+   (b)'s; the ``k1*G + k2*Q`` kernel's entries are on none of those paths
+   but their own, so their ``launches`` is ``secp256k1_ecmul2``'s boot
+   count, phase 13 (b)'s, and ``secp256k1_verify``'s count of phase 3's
+   ``ecdsa_verify`` at 1,024 lanes), then the result line.
 
 ``--digest-only`` runs none of this: it times ``ops.quorum.digest_words``
 and the recovery kernel of whichever ``go_ibft_tpu_torch`` comes first on
@@ -249,6 +264,36 @@ RECOVER_DIGIT_FIELD_MULS = (11, 11, 16, 17)
 RECOVER_MONT_MULS = 1 + 328 + 2
 RECOVER_WIDE_PRODUCTS = 2 * (2 + 4)
 RECOVER_BYTES_PER_LANE = (8 + 20 + 20 + 1) * 4 + (20 + 20 + 5) * 4 + 1  # in + out
+# The k1*G + k2*Q kernel, counted in the same units by what its entries
+# need, not by the recovery's first version: k1*G by the comb, a mixed
+# addition (11) for each nonzero byte of k1 after the first (which lands on
+# infinity) and no doubling; k2's one GLV split (2 wide products and 4 low
+# products); d*Q for d <= 15 (a doubling of 7 and 13 mixed additions of 11);
+# one Straus ladder over Q and phi(Q) sharing 128 doublings of 7, each
+# nonzero window digit of k2's halves a Jacobian addition (16 for Q, 17 for
+# phi(Q)); the two merges (16 each).  The verification adds s^-1 by safegcd,
+# s^-1 to Montgomery form, u1 and u2 (3 Montgomery products), Z^-1 by
+# safegcd and x (2 field products); a lane that fails its range checks needs
+# none of it.  One safegcd inversion is 20 rounds of 30 branch-free divsteps
+# (27 operations each) and the updates of (d, e) mod M and of (f, g), 9
+# signed 30-bit limbs each of 6 and of 4 multiply-adds (4 operations) and
+# two masked 64-bit shifts (3); its normalisation is left out.  Bytes: 4
+# inputs and 3 outputs of 20 limbs (verify: 5 inputs and a byte).
+OPS_SAFEGCD = 20 * (30 * 27 + 9 * (6 * 4 + 2 * 3) + 9 * (4 * 4 + 2 * 3))
+ECMUL2_FIXED_FIELD_MULS = (7 + 13 * 11) + 128 * 7 + 2 * 16
+ECMUL2_COMB_FIELD_MULS = 11
+ECMUL2_DIGIT_FIELD_MULS = (16, 17)
+ECMUL2_WIDE_PRODUCTS = 2 + 4
+VERIFY_FIELD_MULS = 2
+VERIFY_MONT_MULS = 3
+VERIFY_SAFEGCDS = 2
+ECMUL2_BYTES_PER_LANE = (4 + 3) * 20 * 4
+VERIFY_BYTES_PER_LANE = 5 * 20 * 4 + 1
+# Lane counts at which both entries are timed: the boot registry's 8 and the
+# recovery's main-path sizes.
+ECMUL2_LANES = (8, 256, 1024)
+ECMUL2_ARGS = ("k1", "k2", "qx", "qy")
+VERIFY_ARGS = ("qx", "qy", "z", "r", "s")
 # certify_lanes: the verifier's lane buckets (a phase's lanes) and table
 # buckets (verify/batch.py), each held with seeded lanes in two phases; the
 # worst, 2 x 2,048 lanes against 2,048 rows, is also timed.
@@ -295,6 +340,17 @@ def cuda_time_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def once_ms(fn) -> float:
+    """CUDA-event time of one ``fn()`` (already warmed up)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 def median_ms(fn, calls: int, warmup: int = 1):
@@ -380,6 +436,26 @@ def bound(nbytes: int, ops: int) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def ladder_field_muls(halves, costs) -> int:
+    """Field products of a 4-bit ladder's additions over the signed GLV
+    ``halves``: one a nonzero window digit of each, at its stream's cost."""
+    return sum(cost * sum(1 for w in range(33) if (abs(h) >> (4 * w)) & 15)
+               for h, cost in zip(halves, costs))
+
+
+def digit_field_muls(u1: int, u2: int, glv_halves) -> int:
+    """Field products of the recovery ladder's additions for scalars ``u1``
+    (of G) and ``u2`` (of R)."""
+    return ladder_field_muls(glv_halves(u1) + glv_halves(u2), RECOVER_DIGIT_FIELD_MULS)
+
+
+def comb_field_muls(k: int) -> int:
+    """Field products of ``k*G`` by the comb: a mixed addition for each
+    nonzero byte of ``k`` after the first."""
+    nonzero = sum(1 for w in range(32) if (k >> (8 * w)) & 255)
+    return ECMUL2_COMB_FIELD_MULS * max(nonzero - 1, 0)
+
+
 def recover_ops(z, r, s, v, n_order, glv_halves) -> int:
     """32-bit operations the recovery of these lanes needs (Python ints):
     lanes that fail the range checks need none; the ladder's additions
@@ -390,15 +466,113 @@ def recover_ops(z, r, s, v, n_order, glv_halves) -> int:
             continue
         rinv = pow(ri, -1, n_order)
         u1, u2 = (-zi) * rinv % n_order, si * rinv % n_order
-        halves = [abs(h) for u in (u1, u2) for h in glv_halves(u)]
-        field_muls += RECOVER_FIXED_FIELD_MULS
-        for h, cost in zip(halves, RECOVER_DIGIT_FIELD_MULS):
-            field_muls += cost * sum(1 for w in range(33) if (h >> (4 * w)) & 15)
+        field_muls += RECOVER_FIXED_FIELD_MULS + digit_field_muls(u1, u2, glv_halves)
         mont_muls += RECOVER_MONT_MULS
         wide += RECOVER_WIDE_PRODUCTS
         perms += 1
     return (field_muls * OPS_FIELD_MUL + mont_muls * OPS_MONT_MUL + wide * OPS_WIDE_PRODUCT
             + perms * KECCAK_OPS_PER_STATE)
+
+
+def ecmul2_work(lanes, rows, verify: bool, n_order, glv_halves) -> dict:
+    """The bound of one ``secp256k1_ecmul2`` (or, ``verify``,
+    ``secp256k1_verify``) launch over ``rows`` of ``lanes`` (a
+    ``bench/lanes.py::VerifyLanes``): bytes and 32-bit operations, the
+    comb's and the ladder's additions following each row's own bytes and
+    window digits."""
+    field_muls = mont_muls = wide = inversions = 0
+    for i in rows:
+        if verify:
+            r, s = lanes.r[i], lanes.s[i]
+            if not (0 < r < n_order and 0 < s < n_order):
+                continue
+            w = pow(s, -1, n_order)
+            k1, k2 = lanes.z[i] * w % n_order, r * w % n_order
+            field_muls += VERIFY_FIELD_MULS
+            mont_muls += VERIFY_MONT_MULS
+            inversions += VERIFY_SAFEGCDS
+        else:
+            k1, k2 = lanes.k1[i] % n_order, lanes.k2[i] % n_order
+        field_muls += (ECMUL2_FIXED_FIELD_MULS + comb_field_muls(k1)
+                       + ladder_field_muls(glv_halves(k2), ECMUL2_DIGIT_FIELD_MULS))
+        wide += ECMUL2_WIDE_PRODUCTS
+    nbytes = len(rows) * (VERIFY_BYTES_PER_LANE if verify else ECMUL2_BYTES_PER_LANE)
+    return bound(nbytes, field_muls * OPS_FIELD_MUL + mont_muls * OPS_MONT_MUL
+                 + wide * OPS_WIDE_PRODUCT + inversions * OPS_SAFEGCD)
+
+
+def verify_inputs(lanes, batch, dev, labels=None) -> dict:
+    """``lanes.arrays(batch, labels)`` as contiguous int32 tensors on
+    ``dev``, and ``lane``, each row's lane."""
+    import numpy as np
+
+    arr = lanes.arrays(batch, labels)
+    out = {k: torch.from_numpy(np.ascontiguousarray(arr[k])).to(dev) for k in set(ECMUL2_ARGS + VERIFY_ARGS)}
+    out["lane"] = arr["lane"]
+    return out
+
+
+def ecmul2_holds(report: dict, err: dict, dev, rows: int = 1024):
+    """Phase 3's holds of the k1*G + k2*Q kernel: both entries against their
+    plain versions on ``bench/lanes.py::build_verify_lanes``' lanes once
+    (the plain ladder is eager: slow on the card), then the port's entry
+    points ``ops.secp256k1.ecmul2_base`` and ``ecdsa_verify`` at ``rows``
+    rows of the same lanes, their launches counted from 0 (one each), every
+    row against its lane's plain result and, on the curve, the host oracle.
+    Updates ``err``; returns the lanes and the counts.  On the CPU (``dev``)
+    the wrappers take the plain versions and no count is checked."""
+    from go_ibft_tpu_torch.bench import build_verify_lanes
+    from go_ibft_tpu_torch.ops import ecverify
+    from go_ibft_tpu_torch.ops import fields as tf
+    from go_ibft_tpu_torch.ops import secp256k1 as sec
+
+    def points(pt):
+        """Per lane ``None`` at infinity, else the affine point as ints;
+        and the canonical affine limbs and the infinity flag."""
+        x, y = sec.to_affine(pt)
+        inf = sec.is_infinity(pt)
+        return [None if i else xy for i, xy in zip(inf.tolist(), zip(tf.from_limbs(x), tf.from_limbs(y)))], (x, y, inf)
+
+    def exact(out, ref, what):
+        check(torch.equal(out, ref), what)
+        return int((out.to(torch.int64) - ref.to(torch.int64)).abs().max()) if out.numel() else 0
+
+    t0 = time.perf_counter()
+    lanes = build_verify_lanes(8, seed=0)
+    ins = verify_inputs(lanes, None, dev)
+    got = points(ecverify.ecmul2(*(ins[k] for k in ECMUL2_ARGS)))[1]
+    plain_points, ref = points(ecverify.ecmul2_plain(*(ins[k] for k in ECMUL2_ARGS)))
+    exact(got[2], ref[2], "secp256k1_ecmul2 kernel == plain: infinity")
+    for part in (0, 1):
+        err["secp256k1_ecmul2"] = max(err["secp256k1_ecmul2"], exact(
+            got[part][~ref[2]], ref[part][~ref[2]], f"secp256k1_ecmul2 kernel == plain: {'xy'[part]}"))
+    plain_masks = ecverify.verify_plain(*(ins[k] for k in VERIFY_ARGS))
+    err["secp256k1_verify"] = max(err["secp256k1_verify"], exact(
+        ecverify.verify(*(ins[k] for k in VERIFY_ARGS)), plain_masks, "secp256k1_verify kernel == plain"))
+    plain_masks = plain_masks.tolist()
+    hold_s = time.perf_counter() - t0
+    oracle_points, oracle_masks = lanes.expected_points(), lanes.expected_masks()
+    big = verify_inputs(lanes, rows, dev)
+    ecverify.ecmul2.launches = ecverify.verify.launches = 0
+    masks = sec.ecdsa_verify(*(big[k] for k in VERIFY_ARGS)).tolist()
+    pts = points(sec.ecmul2_base(*(big[k] for k in ECMUL2_ARGS)))[0]
+    path = {"secp256k1_ecmul2": ecverify.ecmul2.launches, "secp256k1_verify": ecverify.verify.launches}
+    if dev.type == "cuda":
+        check(path == {"secp256k1_ecmul2": 1, "secp256k1_verify": 1},
+              f"ecmul2_base and ecdsa_verify at {rows} lanes: one launch each ({path})")
+    for row, lane in enumerate(big["lane"]):
+        what = f"lane {lanes.labels[lane]!r}, row {row} of {rows}"
+        check(pts[row] == plain_points[lane] and masks[row] == plain_masks[lane],
+              f"ecmul2_base and ecdsa_verify on {dev} == plain, {what}")
+        if lane in oracle_masks:
+            check(pts[row] == oracle_points[lane] and masks[row] == oracle_masks[lane],
+                  f"ecmul2_base and ecdsa_verify on {dev} == host oracle, {what}")
+    report["verify_path_launches"] = path
+    log(f"[3] secp256k1_ecmul2 and secp256k1_verify bit-exact against plain on {len(lanes)} lanes "
+        f"({', '.join(sorted(set(lanes.labels)))}; plain on {dev} {hold_s:.1f} s), and "
+        f"ecmul2_base/ecdsa_verify at {rows} rows == plain and the host oracle ({sum(masks)} verify); "
+        f"launches {path}")
+    return lanes, path
 
 
 def host_masks(rnd, ecdsa, keccak256, height):
@@ -2140,6 +2314,7 @@ def validator_phase(report: dict, ident: str, counts, holds, dev=None, small: bo
     from go_ibft_tpu_torch.messages.wire import Proposal
     from go_ibft_tpu_torch.obs.evidence import probe_fingerprint
     from go_ibft_tpu_torch.ops import quorum
+    from go_ibft_tpu_torch.ops import secp256k1 as sec
     from go_ibft_tpu_torch.sched import TenantScheduler
     from go_ibft_tpu_torch.sim.fleet import FleetSpec, _http_get, run_fleet
 
@@ -2169,6 +2344,15 @@ def validator_phase(report: dict, ident: str, counts, holds, dev=None, small: bo
         for program, st in rep["programs"].items():
             log(f"    {program:32s} {st['status']:7s} {st['compile_ms']:10.1f} ms")
     cold, cached = legs["cold"], legs["cached"]
+    # The k1*G + k2*Q kernel's family: a cold restore is the shared nvcc
+    # build's wall plus its first launch, a cached one its first launch.
+    family = {tag: leg["report"]["programs"].get("ecmul2_base_8l") for tag, leg in legs.items()}
+    if card:
+        log("[13] a ecmul2_base_8l: " + "; ".join(f"{tag} leg {st['status']} in {st['compile_ms']:.1f} ms"
+                                                  for tag, st in family.items()) + f" ({ident})")
+        check(family["cold"]["status"] == "cold" and family["cached"]["status"] == "cached",
+              "13a: ecmul2_base_8l cold in the cold leg (secp256k1_recover built there), cached in the cached leg")
+    out["ecmul2_base_8l"] = family
     if card:
         check(cold["report"]["platform"] == "gpu" and cold["report"]["skipped"] == 0, "13a: every family on the card")
         check(cold["report"]["cold"] >= 1 and len(cold["events"]) >= 1,
@@ -2204,7 +2388,7 @@ def validator_phase(report: dict, ident: str, counts, holds, dev=None, small: bo
                              WriteAheadLog(path))
         reset_counts()
         t0 = time.perf_counter()
-        rep = runner.warm_start(programs=list(BOOT_MAIN_FAMILIES), handle=handle, device=dev)
+        rep = runner.warm_start(programs=[*BOOT_MAIN_FAMILIES, "ecmul2_base_8l"], handle=handle, device=dev)
         warm_ms = (time.perf_counter() - t0) * 1e3
         boot_launches = read_counts()
         runner.wal.close()
@@ -2228,6 +2412,8 @@ def validator_phase(report: dict, ident: str, counts, holds, dev=None, small: bo
         check(boot_launches["keccak256_digest"] == 3 and boot_launches["secp256k1_recover"] == 3
               and boot_launches["certify_lanes"] == 2,
               "13b: the four main families: 3 digest, 3 recovery and 2 certify_lanes launches")
+        check(boot_launches["secp256k1_ecmul2"] == 1 and boot_launches["secp256k1_verify"] == 0,
+              "13b: ecmul2_base_8l: one secp256k1_ecmul2 launch")
         check(all(s.status == "cached" for s in rep.programs.values()), "13b: phase 2's libraries: all cached")
     rargs = program_registry(["round_certify_8l"], device=dev)["round_certify_8l"]()[1]
     b_blocks, b_counts, zw, r, s, v = main_path_inputs(rargs, quorum)
@@ -2235,6 +2421,10 @@ def validator_phase(report: dict, ident: str, counts, holds, dev=None, small: bo
     hold_recovery((zw, r, s, v), "secp256k1_recover kernel == plain at the boot registry's 16 lanes")
     z_limbs = program_registry(["ecdsa_recover_8l"], device=dev)["ecdsa_recover_8l"]()[1]
     hold_recovery(z_limbs, "secp256k1_recover kernel == plain at the boot registry's ecdsa_recover_8l")
+    fn, args = program_registry(["ecmul2_base_8l"], device=dev)["ecmul2_base_8l"]()
+    out_pt = fn(*args)
+    check(bool(sec.is_infinity(out_pt).all()) and bool(sec.is_infinity(sec.ecmul2_base_plain(*args)).all()),
+          "ecmul2_base_8l's all-zero lanes: the kernel and the plain ladder give infinity")
     out["warm_start"] = {"height": rep.height, "seeded": rep.seeded_seal_verdicts, "warm_ms": warm_ms,
                          "launches": boot_launches, "seeded_launches": seeded_launches}
 
@@ -2498,7 +2688,11 @@ def main_profile() -> int:
     each), keccak_f1600 at 256 states (50) -- and each round's
     ``certify_round`` in a session right after, after one ``certify_round``
     of a ``MeshBatchVerifier`` over 4 shards of the card (its device events
-    in launch order).  The rounds are phase 3's (the same seeds); the 128 x 8
+    in launch order), and the boot registry's ``ecmul2_base_8l`` call in a
+    session of its own (its device kernels by name).  Both entries of the
+    ``k1*G + k2*Q`` kernel are profiled at 8, 256 and 1,024 lanes (5
+    launches each) on phase 3's valid verification lanes.  The rounds are
+    phase 3's (the same seeds); the 128 x 8
     and 128 x 32 blocks and the states are seeded here.  The kernels'
     session is taken again, up to three times, where the profiler lost a
     device event.  Before the sessions, ``certify_lanes``' launcher is
@@ -2510,10 +2704,11 @@ def main_profile() -> int:
 
     Prints the card's identity, then one JSON line."""
     from go_ibft_tpu_torch import convert
-    from go_ibft_tpu_torch.bench import build_signed_round
+    from go_ibft_tpu_torch.bench import build_signed_round, build_verify_lanes
     from go_ibft_tpu_torch.bench.engine import Committee, EngineRunner, check_height
+    from go_ibft_tpu_torch.boot import program_registry
     from go_ibft_tpu_torch.crypto.backend import ECDSABackend
-    from go_ibft_tpu_torch.ops import certify_lanes, ecrecover, keccak_f1600, quorum
+    from go_ibft_tpu_torch.ops import certify_lanes, ecrecover, ecverify, keccak_f1600, quorum
     from go_ibft_tpu_torch.verify import DeviceBatchVerifier, MeshBatchVerifier
 
     print(gpu_identity(), flush=True)
@@ -2539,6 +2734,14 @@ def main_profile() -> int:
                      lambda blocks=blocks, counts=counts: keccak_f1600.launch_digest(blocks, counts, True)))
     st = torch.randint(-(2**31), 2**31, (256, 25, 2), dtype=torch.int32, generator=gen).to(dev)
     work.append(("keccak_f1600", 256, 50, lambda: keccak_f1600.launch(st)))
+    vlanes = build_verify_lanes(8, seed=0)
+    for b in ECMUL2_LANES:
+        ins = verify_inputs(vlanes, b, dev, labels=("valid",))
+        work.append(("secp256k1_ecmul2", b, 5,
+                     lambda a=[ins[k] for k in ECMUL2_ARGS]: ecverify.launch_ecmul2(*a)))
+        work.append(("secp256k1_verify", b, 5,
+                     lambda a=[ins[k] for k in VERIFY_ARGS]: ecverify.launch_verify(*a)))
+    family_fn, family_args = program_registry(["ecmul2_base_8l"], device=dev)["ecmul2_base_8l"]()
     verifiers = {label: DeviceBatchVerifier(ECDSABackend.static_validators({m.sender: 1 for m in rnd.prepares}))
                  for label, rnd in rounds.items()}
 
@@ -2562,6 +2765,7 @@ def main_profile() -> int:
 
     for _, _, _, fn in work:  # warm-up: builds, loads, first launches
         fn()
+    family_fn(*family_args)
     for label in rounds:
         certify(label)
     check(list(mesh_certify()[0]) == list(certify("100v")[0]), "the mesh certify_round's mask == one device's")
@@ -2590,7 +2794,8 @@ def main_profile() -> int:
         queues, per_launch = {}, {}
         for name, ms in prof["events"]:
             queues.setdefault(next((k for k in ("keccak256_digest", "secp256k1_recover", "keccak_f1600",
-                                                "certify_lanes") if k in name), None), []).append(ms)
+                                                "certify_lanes", "secp256k1_ecmul2", "secp256k1_verify")
+                                    if k in name), None), []).append(ms)
         for kernel, label, n, _ in work:
             times = queues.get(kernel, [])[:n]
             queues[kernel] = queues.get(kernel, [])[n:]
@@ -2604,6 +2809,10 @@ def main_profile() -> int:
         if per_launch is not None:
             break
     check(per_launch is not None, f"the profiler recorded every kernel launch of one of {sessions} sessions")
+    for _ in range(3):  # again where the session lost the kernel's event
+        family = profile_call(lambda: family_fn(*family_args))
+        if any("secp256k1_ecmul2" in name for name in family["count_by_name"]):
+            break
     meshed = profile_call(mesh_certify, ordered=True)
     certified = {label: profile_call(lambda label=label: certify(label)) for label in rounds}
     ran = []
@@ -2612,8 +2821,10 @@ def main_profile() -> int:
     for call in (*certified.values(), height, meshed):
         call["top_kernels_ms"] = sorted(call.pop("by_name_ms").items(), key=lambda kv: -kv[1])[:5]
         call.pop("count_by_name")
+    family.pop("by_name_ms")
     print(json.dumps({"device_ms_per_launch": per_launch, "sessions": sessions, "certify_round": certified,
-                      "height": height, "certify_lanes_launcher": launcher, "mesh_certify_round": meshed}),
+                      "height": height, "certify_lanes_launcher": launcher, "mesh_certify_round": meshed,
+                      "ecmul2_base_8l": family}),
           flush=True)
     return 0
 
@@ -2724,7 +2935,7 @@ def main() -> int:
     from go_ibft_tpu_torch.crypto import ecdsa
     from go_ibft_tpu_torch.crypto.backend import ECDSABackend
     from go_ibft_tpu_torch.crypto.keccak import keccak256
-    from go_ibft_tpu_torch.ops import bls_kernels, certify_lanes, ecrecover, keccak_f1600, quorum
+    from go_ibft_tpu_torch.ops import bls_kernels, certify_lanes, ecrecover, ecverify, keccak_f1600, quorum
     from go_ibft_tpu_torch.ops import fields as tf
     from go_ibft_tpu_torch.ops import keccak as tk
     from go_ibft_tpu_torch.verify import DeviceBatchVerifier
@@ -2786,7 +2997,8 @@ def main() -> int:
         return x, y, ok
 
     gen = torch.Generator(device="cpu").manual_seed(0)
-    err = {"keccak_f1600": 0, "keccak256_digest": 0, "secp256k1_recover": 0, "certify_lanes": 0}
+    err = {"keccak_f1600": 0, "keccak256_digest": 0, "secp256k1_recover": 0, "certify_lanes": 0,
+           "secp256k1_ecmul2": 0, "secp256k1_verify": 0}
 
     def hold_certify(ins, thresholds, split, what):
         """``certify_lanes.certify`` against ``certify_plain`` on ``ins``:
@@ -2852,6 +3064,7 @@ def main() -> int:
                                  f"secp256k1_recover kernel == plain on the {label} round's lanes")
         log(f"[3] {label} round: digest at {tuple(blocks.shape)} and recovery at "
             f"{v.numel()} lanes ({int(ok.sum())} recover) bit-exact against plain")
+    vlanes, verify_path = ecmul2_holds(report, err, dev)
     t0 = time.perf_counter()
     for label, rargs in (("100v", args100), ("300v_30bad", args300), ("100v_34bad", args34)):
         c_args, thresholds, split = certify_inputs(rargs, quorum, ecrecover)
@@ -2888,6 +3101,8 @@ def main() -> int:
         "keccak256_digest": (quorum.digest_words, tk.keccak256_blocks),
         "secp256k1_recover": (ecrecover.recover,),
         "certify_lanes": (certify_lanes.certify,),
+        "secp256k1_ecmul2": (ecverify.ecmul2,),
+        "secp256k1_verify": (ecverify.verify,),
         "bls_merge": (bls_kernels.merge,),
         "bls_miller": (bls_kernels.miller,),
         "bls_final_exp": (bls_kernels.final_exp,),
@@ -2961,7 +3176,8 @@ def main() -> int:
     # Each kernel at the main path's own inputs: the payload digests of the
     # 100- and 300-validator rounds (128 and 512 messages of 2 blocks) and
     # their recovery lanes (PREPARE + COMMIT: 256 and 1024).
-    timing = {"keccak_f1600": {}, "keccak256_digest": {}, "secp256k1_recover": {}, "certify_lanes": {}}
+    timing = {"keccak_f1600": {}, "keccak256_digest": {}, "secp256k1_recover": {}, "certify_lanes": {},
+              "secp256k1_ecmul2": {}, "secp256k1_verify": {}}
     # The profiler's numbers come from a process of its own: it records the
     # card only in a process's first sessions (PERF.md §7).
     child = subprocess.run([sys.executable, os.path.abspath(__file__), "--main-profile"],
@@ -3040,12 +3256,29 @@ def main() -> int:
         log(f"[7] secp256k1_recover at {b} lanes: {sweep[b]:.5f} ms "
             f"({b / sweep[b] * 1e3:.0f} lanes/s)")
     report["recover_sweep_ms"] = sweep
+    # Both entries of the k1*G + k2*Q kernel on the valid lanes of phase 3
+    # (u1, u2 of real signatures as k1, k2), repeated; the plain versions
+    # at the boot registry's 8 lanes, one call each (phase 3 warmed them).
+    for b in ECMUL2_LANES:
+        ins = verify_inputs(vlanes, b, dev, labels=("valid",))
+        for name, launcher, plain_fn, names, is_verify in (
+                ("secp256k1_ecmul2", ecverify.launch_ecmul2, ecverify.ecmul2_plain, ECMUL2_ARGS, False),
+                ("secp256k1_verify", ecverify.launch_verify, ecverify.verify_plain, VERIFY_ARGS, True)):
+            args_b = [ins[k] for k in names]
+            timing[name][b] = {
+                "batch": b,
+                "ms": cuda_time_ms(lambda f=launcher, a=args_b: f(*a), 20),
+                "device_ms_per_launch": per_launch[name][str(b)],
+                "plain_ms": once_ms(lambda f=plain_fn, a=args_b: f(*a)) if b == 8 else None,
+                **ecmul2_work(vlanes, ins["lane"], is_verify, ecdsa.N, glv_halves),
+            }
     for name, rows in timing.items():
         for key, t in rows.items():
             on_card = (f", {t['device_ms_per_launch'] * 1e3:.2f} us on the card"
                        if "device_ms_per_launch" in t else "")
+            plain = "not timed" if t["plain_ms"] is None else f"{t['plain_ms']:.3f} ms"
             log(f"[7] {name} at {key}: kernel {t['ms']:.5f} ms{on_card}, plain "
-                f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.3g} ms ({t['bound_by']})")
+                f"{plain}, bound {t['bound_ms']:.3g} ms ({t['bound_by']})")
     report["kernel_timing"] = timing
 
     medians = {}
@@ -3090,6 +3323,15 @@ def main() -> int:
     for label, t in profiled["certify_lanes_launcher"].items():
         log(f"[7] certify_lanes' launcher at {label}, back to back: {t['host_us']:.2f} us of host a call, "
             f"{t['events_ms'] * 1e3:.2f} us a launch (events)")
+    family = profiled["ecmul2_base_8l"]
+    log(f"[7] the boot registry's ecmul2_base_8l call on the card (the --main-profile process): "
+        f"{family['count_by_name']}")
+    kernels_seen = {name: n for name, n in family["count_by_name"].items() if "Memcpy" not in name
+                    and "Memset" not in name}
+    check(len(kernels_seen) == 1 and "secp256k1_ecmul2_kernel" in next(iter(kernels_seen))
+          and next(iter(kernels_seen.values())) == 1,
+          f"ecmul2_base_8l on the card is one secp256k1_ecmul2 launch, no eager ladder ({kernels_seen})")
+    report["ecmul2_base_8l_profile"] = family
     kern_dev_ms = per_launch["keccak_f1600"]["256"]
     timing["keccak_f1600"][256]["device_ms_per_launch"] = kern_dev_ms
     log(f"[7] keccak_f1600 at B=256: {kern_dev_ms * 1e3:.2f} us on the card per launch (profiler)")
@@ -3120,7 +3362,9 @@ def main() -> int:
     main = {"keccak_f1600": timing["keccak_f1600"][256],  # PR 1's main-path size
             "keccak256_digest": timing["keccak256_digest"]["100v"],
             "secp256k1_recover": timing["secp256k1_recover"]["100v"],
-            "certify_lanes": timing["certify_lanes"]["100v"]}
+            "certify_lanes": timing["certify_lanes"]["100v"],
+            "secp256k1_ecmul2": timing["secp256k1_ecmul2"][8],  # the boot registry's lanes
+            "secp256k1_verify": timing["secp256k1_verify"][8]}
     where = {
         "keccak_f1600": ("go_ibft_tpu_torch/csrc/keccak_f1600.cu",
                          "go_ibft_tpu/ops/pallas_keccak.py:131"),
@@ -3130,7 +3374,15 @@ def main() -> int:
                               "go_ibft_tpu/ops/secp256k1.py:665"),
         "certify_lanes": ("go_ibft_tpu_torch/csrc/certify_lanes.cu",
                           "go_ibft_tpu/verify/batch.py:491"),
+        "secp256k1_ecmul2": ("go_ibft_tpu_torch/csrc/secp256k1_recover.cu",
+                             "go_ibft_tpu/ops/secp256k1.py:512"),
+        "secp256k1_verify": ("go_ibft_tpu_torch/csrc/secp256k1_recover.cu",
+                             "go_ibft_tpu/ops/secp256k1.py:625"),
     }
+    # The k1*G + k2*Q kernel's entries run on their own paths only: the boot
+    # (phase 13 (b)) and phase 3's ecdsa_verify at 1,024 lanes.
+    own_path = {"secp256k1_ecmul2": boot_launches["secp256k1_ecmul2"],
+                "secp256k1_verify": verify_path["secp256k1_verify"]}
     # "ms" is CUDA events over back-to-back launches, which the wrapper's
     # Python bounds for the short Keccak kernels; "device_ms_per_launch" is
     # the kernel's own time on the card (profiler).
@@ -3139,7 +3391,7 @@ def main() -> int:
         "route": "cuda",
         "source": where[name][0],
         "replaces": where[name][1],
-        "launches": launches[name],
+        "launches": own_path.get(name, launches[name]),
         "engine_launches": engine_launches[name],
         "chain_launches": chain_launches[name],
         "bls_launches": bls["config4"][name],

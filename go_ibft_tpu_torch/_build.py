@@ -62,6 +62,8 @@ SIGNATURES = {
             [_P, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P],
             ctypes.c_int,
         ),
+        "secp256k1_ecmul2": ([_P] * 8 + [ctypes.c_longlong, _P], ctypes.c_int),
+        "secp256k1_verify": ([_P] * 7 + [ctypes.c_longlong, _P], ctypes.c_int),
     },
     "certify_lanes": {
         "certify_lanes": (

@@ -1,5 +1,6 @@
-"""A seeded batch of recovery lanes: real signatures plus the adversarial
-lanes a hand-written recovery kernel is likely to get wrong.
+"""Seeded batches of recovery lanes (and, :func:`build_verify_lanes`, of
+verification and ``k1*G + k2*Q`` lanes): real signatures plus the
+adversarial lanes a hand-written kernel is likely to get wrong.
 
 The CPU tests, the card tests and ``chip_smoke.py`` all hold the recovery
 (the plain version and the CUDA kernel) against the host oracle
@@ -46,7 +47,8 @@ from ..crypto import ecdsa
 from ..ops import secp256k1 as sec
 from ..ops.fields import to_limbs
 
-__all__ = ["RecoveryLanes", "build_recovery_lanes", "build_sparse_scalar_lanes", "glv_halves"]
+__all__ = ["RecoveryLanes", "VerifyLanes", "build_recovery_lanes", "build_sparse_scalar_lanes",
+           "build_verify_lanes", "glv_halves"]
 
 
 @dataclass
@@ -199,4 +201,133 @@ def build_sparse_scalar_lanes(n: int = 32, seed: int = 0) -> RecoveryLanes:
             else:
                 z = int(rng.integers(0, 1 << 20))
         lanes.add("sparse", z.to_bytes(32, "big"), rx, s, ry & 1)
+    return lanes
+
+
+@dataclass
+class VerifyLanes:
+    """Lanes of both entries of the ``k1*G + k2*Q`` kernel: each lane holds
+    a key ``Q = (qx, qy)``, a verification's ``(z, r, s)`` and a pair of
+    scalars ``(k1, k2)``, so that every lane runs through both
+    ``ecdsa_verify`` and ``ecmul2_base``; :meth:`arrays` packs them."""
+
+    qx: List[int] = field(default_factory=list)
+    qy: List[int] = field(default_factory=list)
+    z: List[int] = field(default_factory=list)  # reduced mod N
+    r: List[int] = field(default_factory=list)
+    s: List[int] = field(default_factory=list)
+    k1: List[int] = field(default_factory=list)  # below 2N
+    k2: List[int] = field(default_factory=list)
+    labels: List[str] = field(default_factory=list)
+
+    def add(self, label: str, q: Tuple[int, int], z: int, r: int, s: int,
+            k: Optional[Tuple[int, int]] = None) -> None:
+        """One lane; ``k`` defaults to the verification's ``(u1, u2)``
+        (``(z, r mod N)`` where ``s`` has no inverse mod N)."""
+        n = ecdsa.N
+        if k is None:
+            w = pow(s, -1, n) if s % n else 1
+            k = (z * w % n, r * w % n)
+        self.labels.append(label)
+        for name, value in zip(("qx", "qy", "z", "r", "s", "k1", "k2"), (*q, z, r, s, *k)):
+            getattr(self, name).append(value)
+
+    def __len__(self) -> int:
+        return len(self.r)
+
+    def on_curve(self) -> List[bool]:
+        return [ecdsa.on_curve(x, y) for x, y in zip(self.qx, self.qy)]
+
+    def expected_masks(self) -> Dict[int, bool]:
+        """The host oracle's verification, on the lanes whose key is on the
+        curve (the oracle rejects any other key, which the kernel and the
+        plain version never check): Python ints."""
+        return {i: ecdsa.verify(self.qx[i], self.qy[i], self.z[i].to_bytes(32, "big"), self.r[i],
+                                self.s[i])
+                for i, on in enumerate(self.on_curve()) if on}
+
+    def expected_points(self) -> Dict[int, ecdsa.Point]:
+        """``k1*G + k2*Q`` by the host oracle (``None``: infinity), on the
+        lanes whose key is on the curve."""
+        g = (ecdsa.GX, ecdsa.GY)
+        return {i: ecdsa._add(ecdsa.scalar_mul(self.k1[i], g),
+                              ecdsa.scalar_mul(self.k2[i], (self.qx[i], self.qy[i])))
+                for i, on in enumerate(self.on_curve()) if on}
+
+    def arrays(self, batch: Optional[int] = None, labels: Optional[Tuple[str, ...]] = None
+               ) -> Dict[str, np.ndarray]:
+        """``(B, 20)`` int32 limbs of ``qx``, ``qy``, ``z``, ``r``, ``s``,
+        ``k1``, ``k2`` for ``batch`` lanes (the lanes, or those whose label
+        is in ``labels``, repeated cyclically; default: each once), and
+        ``lane``, the index of each row's lane."""
+        pick = [i for i, lab in enumerate(self.labels) if labels is None or lab in labels]
+        n = len(pick) if batch is None else batch
+        lane = np.asarray(pick)[np.arange(n) % len(pick)]
+        out = {name: to_limbs(getattr(self, name), 20)[lane]
+               for name in ("qx", "qy", "z", "r", "s", "k1", "k2")}
+        out["lane"] = lane
+        return out
+
+
+def _neg(pt: Tuple[int, int]) -> Tuple[int, int]:
+    return pt[0], (-pt[1]) % ecdsa.P
+
+
+def build_verify_lanes(n_valid: int = 8, seed: int = 0) -> VerifyLanes:
+    """Lanes, in order: ``n_valid`` genuine signatures of seeded digests by
+    seeded keys; ``r`` and ``s`` at 0, ``N`` and ``2**256 - 1``; a valid
+    signature under the wrong key; ``Q`` off the curve (``y + 1``) and
+    ``Q = (0, 0)``; ``Q = -(z/r)*G``, whose ``u1*G + u2*Q`` is infinity;
+    ``x = r + N``: a point ``T`` with ``N <= x_T < P``, ``r = x_T - N`` and
+    ``Q = u2**-1 * (T - u1*G)``, valid, then with ``s`` changed.  Then the
+    ``k1*G + k2*Q`` lanes (on the first key, with the first signature's
+    ``(z, r, s)``): ``k1``, ``k2`` or both 0, ``N - 1``, in ``[N, 2N)``,
+    the one-window scalars 16, ``2**8`` and ``2**252`` on either side;
+    ``Q = G`` with ``k1 = N - k2`` (infinity) and with ``k1 = k2`` (the
+    merge doubles)."""
+    n, p = ecdsa.N, ecdsa.P
+    g = (ecdsa.GX, ecdsa.GY)
+    rng = np.random.default_rng(seed)
+
+    def scalar() -> int:
+        return int.from_bytes(rng.bytes(32), "big") % n or 1
+
+    lanes = VerifyLanes()
+    keys = [ecdsa.PrivateKey.from_seed(b"verify-lanes-%d-%d" % (seed, i)) for i in range(max(n_valid, 2))]
+    for key in keys[:n_valid]:
+        digest = rng.bytes(32)
+        r, s, _ = ecdsa.sign(key, digest)
+        lanes.add("valid", key.pubkey, ecdsa.digest_to_scalar(digest), r, s)
+    q0 = keys[0].pubkey
+    digest = rng.bytes(32)
+    r0, s0, _ = ecdsa.sign(keys[0], digest)
+    z0 = ecdsa.digest_to_scalar(digest)
+    for label, r, s in (("r = 0", 0, s0), ("r = N", n, s0), ("r = 2^256 - 1", (1 << 256) - 1, s0),
+                        ("s = 0", r0, 0), ("s = N", r0, n), ("s = 2^256 - 1", r0, (1 << 256) - 1)):
+        lanes.add(label, q0, z0, r, s)
+    lanes.add("wrong key", keys[1].pubkey, z0, r0, s0)
+    lanes.add("Q off the curve (y + 1)", (q0[0], (q0[1] + 1) % p), z0, r0, s0)
+    lanes.add("Q = (0, 0)", (0, 0), z0, r0, s0)
+    lanes.add("u1 G + u2 Q = infinity", ecdsa.scalar_mul(-z0 * pow(r0, -1, n), g), z0, r0, s0)
+    # x = r + N: the smallest x_T >= N + a seeded offset that is a curve x.
+    x_t = n + int(rng.integers(1, 1 << 62))
+    while pow((x_t**3 + 7) % p, (p - 1) // 2, p) != 1:
+        x_t += 1
+    t = (x_t, pow((x_t**3 + 7) % p, (p + 1) // 4, p))
+    z, s = scalar(), scalar()
+    r = x_t - n
+    w = pow(s, -1, n)
+    q = ecdsa.scalar_mul(pow(r * w, -1, n), ecdsa._add(t, _neg(ecdsa.scalar_mul(z * w, g))))
+    lanes.add("x = r + N", q, z, r, s)
+    lanes.add("x = r + N, s changed", q, z, r, s + 1)
+    ka, kb = scalar(), scalar()
+    for label, k in (("k1 = 0", (0, kb)), ("k2 = 0", (ka, 0)), ("k1 = k2 = 0", (0, 0)),
+                     ("k1 = N - 1", (n - 1, kb)), ("k2 = N - 1", (ka, n - 1)),
+                     ("k1 in [N, 2N)", (n + ka, kb)), ("k2 in [N, 2N)", (ka, n + kb))):
+        lanes.add(label, q0, z0, r0, s0, k)
+    for name, one in (("16", 16), ("2^8", 1 << 8), ("2^252", 1 << 252)):
+        lanes.add(f"k1 = {name}", q0, z0, r0, s0, (one, 0))
+        lanes.add(f"k2 = {name}", q0, z0, r0, s0, (0, one))
+    lanes.add("Q = G, k1 = N - k2", g, z0, r0, s0, (n - kb, kb))
+    lanes.add("Q = G, k1 = k2", g, z0, r0, s0, (kb, kb))
     return lanes

@@ -20,11 +20,12 @@ only when asked for) places the arguments; on the CPU each function takes
 its kernels' plain versions.  The mesh families and ``ici_tick_8n`` run
 over ``[device] * dp`` (a mesh of shards of one device, as the port's
 one-card mesh does), so they never raise :class:`ProgramUnavailable` for
-want of devices.  ``ecmul2_base_8l`` warms the port's plain
-``ops/secp256k1.py::ecmul2_base`` (eager PyTorch on the device): no kernel
-of the port computes it, since the recovery kernel does its own ladder.
-The BLS families take the port's point layout (12 x 32-bit words a
-coordinate, not the JAX package's 30 x 13-bit limbs).
+want of devices.  ``ecmul2_base_8l`` warms the port's
+``ops/secp256k1.py::ecmul2_base``, on the card one launch of the
+``secp256k1_ecmul2`` entry of ``csrc/secp256k1_recover.cu``, the source
+the recovery kernel is built from.  The BLS families take the port's
+point layout (12 x 32-bit words a coordinate, not the JAX package's
+30 x 13-bit limbs).
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ _SOURCES: Dict[str, Tuple[str, ...]] = {
     "quorum_certify": (_KECCAK, _RECOVER, _CERTIFY),
     "round_certify": (_KECCAK, _RECOVER, _CERTIFY),
     "ecdsa_recover": (_RECOVER, _CERTIFY),
-    "ecmul2_base": (),
+    "ecmul2_base": (_RECOVER,),
     "ici_tick_8n": (_KECCAK,),  # family_of keeps the node suffix
     "mesh_quorum_certify": (_KECCAK, _RECOVER, _CERTIFY),
     "mesh_verify_mask": (_RECOVER, _CERTIFY),

@@ -54,11 +54,41 @@
 //   batch inversion is needed.  The address hash runs keccak::permute
 //   (keccak_f1600.cuh) on registers.
 //
+// The same file holds a second kernel on the same lane arithmetic, with two
+// entry points: secp256k1_ecmul2 (k1 G + k2 Q) replaces the JAX package's
+// XLA program go_ibft_tpu/ops/secp256k1.py::ecmul2_base, and
+// secp256k1_verify replaces ::ecdsa_verify (the range checks, w = s^-1,
+// u1 = z w, u2 = r w, u1 G + u2 Q, not infinity, x == r or x == r + N where
+// r < P - N).  Same function at the outputs: the infinity flag and the
+// affine point of k1 G + k2 Q (the kernel writes canonical X, Y, Z, equal
+// to the plain version's as a projective point), or the mask.  It is
+// bound the same way, by operations: about 3e3 field products a lane (two
+// half ladders of 128 doublings, the comb, d Q) against 320 B in and 240 B
+// out (verify: 400 B in, 1 B out, and two safegcd inversions more); its
+// design keeps the recovery kernel's layout:
+//
+// * Two warps per block of 32 lanes.  Warp 0 builds d Q for d = 1..15 in
+//   the shared table and runs b1 Q over it; warp 1 makes the scalars
+//   (verify: s^-1 by safegcd, then u1, u2), splits k2 by GLV into (b1, b2),
+//   hands b1 to warp 0, sums k1 G by the comb and runs b2 phi(Q) over the
+//   same table with X times beta.  After both ladders warp 1 passes k1 G
+//   and b2 phi(Q) through the table's first two entries (no further shared
+//   memory: the static 48 KB would not hold a third point a lane).
+// * Q is never checked to be on the curve, as in the JAX package.  An
+//   off-curve Q lies on another curve y^2 = x^3 + b', where phi is not
+//   multiplication by lambda and where a sum with a point of the true
+//   curve is not associative.  So the split is the JAX package's exact
+//   (b1, b2), and the merge is the plain version's order,
+//   k1 G + (b1 Q + b2 phi(Q)), not the recovery's; on the curve any order
+//   gives the same point.
+//
 // The lane arithmetic also compiles with a host C++ compiler (lane.cuh; the
 // PTX has a portable C++ twin that runs the same algorithm, and the host
 // runs a lane's two sides one after the other): the CPU tests build this
 // file with g++ and hold secp256k1_recover_host against the host oracle,
-// and secp256k1_modinv_host against Python's pow(x, -1, m).
+// secp256k1_ecmul2_host and secp256k1_verify_host against the plain
+// versions and the host oracle, and secp256k1_modinv_host against Python's
+// pow(x, -1, m).
 
 #include "keccak_f1600.cuh"
 #include "lane.cuh"
@@ -1092,6 +1122,106 @@ LANE_FN bool recover_lane(const int32_t* z_in, bool z_limbs, const int32_t* r_li
   return finish(q, x_out, y_out, addr_out) && in.ok && on_curve;
 }
 
+// ---------------------------------------------------------------------------
+// k1 G + k2 Q, and the verification built on it
+// ---------------------------------------------------------------------------
+
+// 20 limbs (the value as fields.exact_carry reads it, below 2^260) mod P.
+LANE_FN U256 field_from_limbs(const int32_t* limbs) {
+  uint32_t c[kLimbs];
+  exact_carry(c, limbs);
+  U256 lo;
+  uint32_t t[16] = {0};
+  t[8] = limbs_to_words(lo, c);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    t[i] = lo.w[i];
+  }
+  return fp_reduce(t);
+}
+
+// The verification's scalars: u1 = z s^-1 and u2 = r s^-1 (mod N), with z,
+// r and s taken mod N.  A lane with r or s out of range fails whatever
+// they are.
+LANE_FN void verify_scalars(const int32_t* z_limbs, const int32_t* r_limbs, const int32_t* s_limbs,
+                            U256& u1, U256& u2) {
+  const U256 s = scalar_mod_n(s_limbs, true);
+  const U256 winv = mont_mul(modinv(s, kN30, kN30Inv), from_table(kMontR2N));  // s^-1 R
+  u1 = mont_mul(scalar_mod_n(z_limbs, true), winv);
+  u2 = mont_mul(scalar_mod_n(r_limbs, true), winv);
+}
+
+// A lane's two scalars mod N: (k1, k2) as given, or the verification's
+// (u1, u2) from (z, r, s).
+LANE_FN void ecmul2_scalars(bool verify, const int32_t* a, const int32_t* b, const int32_t* s,
+                            U256& k1, U256& k2) {
+  if (verify) {
+    verify_scalars(a, b, s, k1, k2);
+  } else {
+    k1 = scalar_mod_n(a, true);
+    k2 = scalar_mod_n(b, true);
+  }
+}
+
+// The scalar side before the ladders: k2's GLV halves (b1 for the Q
+// ladder, b2 for the phi(Q) one; the JAX package's split, which an
+// off-curve Q makes part of the function) and k1 G by the comb.
+LANE_FN Jac ecmul2_g_side(const U256& k1, const U256& k2, const uint32_t* gtab, U256& b1, bool& n1,
+                          U256& b2, bool& n2) {
+  glv_split(k2, b1, n1, b2, n2);
+  return comb_mul(k1, gtab);
+}
+
+// k1 G + (b1 Q + b2 phi(Q)), the plain version's order.  Q is never
+// checked to be on the curve: an off-curve Q lies on y^2 = x^3 + b', which
+// the doubling and addition formulas never read, so each part is exact on
+// its own curve, but a sum of points of two curves is not associative and
+// this order is part of the result.
+LANE_FN Jac ecmul2_merge(const Jac& g, const Jac& bq, const Jac& bphi) {
+  return point_add(g, point_add(bq, bphi));
+}
+
+// The verification's end: 0 < r < N, 0 < s < N, Q != infinity, and
+// x(Q) == r, or x(Q) == r + N where r < P - N.
+LANE_FN bool verify_result(const int32_t* r_limbs, const int32_t* s_limbs, const Jac& q) {
+  U256 r, s;
+  const bool in_range = scalar_in_range(r, r_limbs) && scalar_in_range(s, s_limbs);
+  if (!in_range || is_zero(q.z)) {
+    return false;
+  }
+  const U256 zinv = modinv(q.z, kP30, kP30Inv);
+  const U256 x = fp_mul(q.x, fp_sqr(zinv));
+  U256 p_minus_n = from_table(kP);
+  sub8(p_minus_n.w, kN);
+  U256 r_plus_n = r;
+  add8(r_plus_n.w, kN, 0);  // below P where it is compared
+  return equal(x, r) || (!geq(r, p_minus_n.w) && equal(x, r_plus_n));
+}
+
+// X, Y, Z as canonical limbs; infinity as (1, 1, 0).
+LANE_FN void write_point(int32_t* x_out, int32_t* y_out, int32_t* z_out, const Jac& q) {
+  const Jac p = is_zero(q.z) ? infinity() : q;
+  words_to_limbs(x_out, p.x);
+  words_to_limbs(y_out, p.y);
+  words_to_limbs(z_out, p.z);
+}
+
+// One lane, its two warps' parts one after the other (the card runs them
+// on two warps): the scalars, k1 G and the split; the table of d Q; the
+// two half ladders; the merge.
+LANE_FN Jac ecmul2_lane(bool verify, const int32_t* a, const int32_t* b, const int32_t* s,
+                        const int32_t* qx, const int32_t* qy, const uint32_t* gtab,
+                        const RTable& tab) {
+  U256 k1, k2, b1, b2;
+  bool n1, n2;
+  ecmul2_scalars(verify, a, b, s, k1, k2);
+  const Jac g = ecmul2_g_side(k1, k2, gtab, b1, n1, b2, n2);
+  build_r_table(field_from_limbs(qx), field_from_limbs(qy), tab);
+  const Jac bq = half_mul(b1, n1, false, tab);
+  const Jac bphi = half_mul(b2, n2, true, tab);
+  return ecmul2_merge(g, bq, bphi);
+}
+
 }  // namespace secp
 
 #if defined(__CUDACC__)
@@ -1163,6 +1293,94 @@ secp256k1_recover_kernel(const int32_t* __restrict__ z, int z_width, const int32
   }
 }
 
+// k1 G + k2 Q (kVerify false: a = k1, b = k2; X, Y, Z out) or the
+// verification (kVerify true: a = z, b = r, s; the mask out), 32 lanes a
+// block.  Warp 0 builds d Q for d = 1..15 in the table and runs b1 Q over
+// it; warp 1 makes the scalars (in verify mode s^-1, u1 and u2 first),
+// splits k2, hands b1 to warp 0, sums k1 G by the comb and runs b2 phi(Q)
+// over the same table; after the ladders it passes k1 G and b2 phi(Q) to
+// warp 0 in the table's first two entries, and warp 0 merges and ends.
+template <bool kVerify>
+__device__ __forceinline__ void ecmul2_block(const int32_t* __restrict__ a,
+                                             const int32_t* __restrict__ b,
+                                             const int32_t* __restrict__ s,
+                                             const int32_t* __restrict__ qx,
+                                             const int32_t* __restrict__ qy,
+                                             const uint32_t* __restrict__ gtab,
+                                             int32_t* __restrict__ x_out, int32_t* __restrict__ y_out,
+                                             int32_t* __restrict__ z_out,
+                                             uint8_t* __restrict__ ok_out, long long n) {
+  __shared__ uint32_t rtab[secp::kRTable * secp::kRWords * kLanes];  // 46,080 B
+  __shared__ uint32_t half1[6 * kLanes];                               // b1 (5 words), n1
+  const int lane = threadIdx.x % kLanes;
+  const bool g_warp = threadIdx.x >= kLanes;
+  const long long i = static_cast<long long>(blockIdx.x) * kLanes + lane;
+  const bool live = i < n;
+  const long long at = i * secp::kLimbs;
+  const secp::RTable tab{rtab + lane, kLanes};
+  secp::U256 b2;
+  secp::Jac g, acc;
+  bool n2 = false;
+  if (live) {
+    if (g_warp) {
+      secp::U256 k1, k2, b1;
+      bool n1;
+      secp::ecmul2_scalars(kVerify, a + at, b + at, kVerify ? s + at : nullptr, k1, k2);
+      g = secp::ecmul2_g_side(k1, k2, gtab, b1, n1, b2, n2);
+#pragma unroll
+      for (int w = 0; w < 5; ++w) {
+        half1[w * kLanes + lane] = b1.w[w];  // below 2^132
+      }
+      half1[5 * kLanes + lane] = n1;
+    } else {
+      secp::build_r_table(secp::field_from_limbs(qx + at), secp::field_from_limbs(qy + at), tab);
+    }
+  }
+  __syncthreads();
+  if (live) {
+    if (g_warp) {
+      acc = secp::half_mul(b2, n2, true, tab);
+    } else {
+      secp::U256 b1 = secp::small(0);
+#pragma unroll
+      for (int w = 0; w < 5; ++w) {
+        b1.w[w] = half1[w * kLanes + lane];
+      }
+      acc = secp::half_mul(b1, half1[5 * kLanes + lane] != 0, false, tab);
+    }
+  }
+  __syncthreads();  // the table is free: k1 G and b2 phi(Q) go into its first two entries
+  if (live && g_warp) {
+    tab.put(1, g);
+    tab.put(2, acc);
+  }
+  __syncthreads();
+  if (live && !g_warp) {
+    const secp::Jac q = secp::ecmul2_merge(tab.get(1), acc, tab.get(2));
+    if (kVerify) {
+      ok_out[i] = secp::verify_result(b + at, s + at, q);
+    } else {
+      secp::write_point(x_out + at, y_out + at, z_out + at, q);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(2 * kLanes)
+secp256k1_ecmul2_kernel(const int32_t* __restrict__ k1, const int32_t* __restrict__ k2,
+                        const int32_t* __restrict__ qx, const int32_t* __restrict__ qy,
+                        const uint32_t* __restrict__ gtab, int32_t* __restrict__ x_out,
+                        int32_t* __restrict__ y_out, int32_t* __restrict__ z_out, long long n) {
+  ecmul2_block<false>(k1, k2, nullptr, qx, qy, gtab, x_out, y_out, z_out, nullptr, n);
+}
+
+__global__ void __launch_bounds__(2 * kLanes)
+secp256k1_verify_kernel(const int32_t* __restrict__ qx, const int32_t* __restrict__ qy,
+                        const int32_t* __restrict__ z, const int32_t* __restrict__ r,
+                        const int32_t* __restrict__ s, const uint32_t* __restrict__ gtab,
+                        uint8_t* __restrict__ ok_out, long long n) {
+  ecmul2_block<true>(z, r, s, qx, qy, gtab, nullptr, nullptr, nullptr, ok_out, n);
+}
+
 }  // namespace
 
 // C entry point, bound with ctypes.  n lanes: z holds z_width (8 value
@@ -1188,6 +1406,46 @@ extern "C" int secp256k1_recover(const void* z, int z_width, const void* r, cons
   return static_cast<int>(cudaGetLastError());
 }
 
+// C entry point, bound with ctypes: k1 G + k2 Q for n lanes.  k1 and k2
+// are 20 limbs below 2N, Q = (qx, qy) 20 canonical limbs each; x_out,
+// y_out, z_out get the Jacobian result as canonical limbs (infinity: Z =
+// 0).  Launches on `stream`; returns the cudaError_t of the launch.
+extern "C" int secp256k1_ecmul2(const void* k1, const void* k2, const void* qx, const void* qy,
+                                const void* gtab, void* x_out, void* y_out, void* z_out, long long n,
+                                void* stream) {
+  if (n <= 0) {
+    return 0;
+  }
+  const long long blocks = (n + kLanes - 1) / kLanes;
+  secp256k1_ecmul2_kernel<<<static_cast<unsigned int>(blocks), 2 * kLanes, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(k1), static_cast<const int32_t*>(k2),
+      static_cast<const int32_t*>(qx), static_cast<const int32_t*>(qy),
+      static_cast<const uint32_t*>(gtab), static_cast<int32_t*>(x_out),
+      static_cast<int32_t*>(y_out), static_cast<int32_t*>(z_out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// C entry point, bound with ctypes: the ECDSA verification of n lanes.
+// qx, qy, z, r, s are 20 limbs each (z taken mod N); ok_out gets one byte
+// a lane (a torch.bool).  Launches on `stream`; returns the cudaError_t of
+// the launch.
+extern "C" int secp256k1_verify(const void* qx, const void* qy, const void* z, const void* r,
+                                const void* s, const void* gtab, void* ok_out, long long n,
+                                void* stream) {
+  if (n <= 0) {
+    return 0;
+  }
+  const long long blocks = (n + kLanes - 1) / kLanes;
+  secp256k1_verify_kernel<<<static_cast<unsigned int>(blocks), 2 * kLanes, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(qx), static_cast<const int32_t*>(qy),
+      static_cast<const int32_t*>(z), static_cast<const int32_t*>(r),
+      static_cast<const int32_t*>(s), static_cast<const uint32_t*>(gtab),
+      static_cast<uint8_t*>(ok_out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 #else
 
 // The same lanes on the host, one after another: the CPU tests' view of the
@@ -1203,6 +1461,34 @@ extern "C" int secp256k1_recover_host(const int32_t* z, int z_width, const int32
                                    s + i * secp::kLimbs, v[i], gtab, tab,
                                    x_out + i * secp::kLimbs, y_out + i * secp::kLimbs,
                                    addr_out + i * 5);
+  }
+  return 0;
+}
+
+// secp256k1_ecmul2 and secp256k1_verify on the host, a lane's two warps'
+// parts one after the other.  Not used by the port's wrappers.
+extern "C" int secp256k1_ecmul2_host(const int32_t* k1, const int32_t* k2, const int32_t* qx,
+                                     const int32_t* qy, const uint32_t* gtab, int32_t* x_out,
+                                     int32_t* y_out, int32_t* z_out, long long n) {
+  uint32_t rtab[secp::kRTable * secp::kRWords];
+  const secp::RTable tab{rtab, 1};
+  for (long long i = 0; i < n; ++i) {
+    const long long at = i * secp::kLimbs;
+    const secp::Jac q = secp::ecmul2_lane(false, k1 + at, k2 + at, nullptr, qx + at, qy + at, gtab, tab);
+    secp::write_point(x_out + at, y_out + at, z_out + at, q);
+  }
+  return 0;
+}
+
+extern "C" int secp256k1_verify_host(const int32_t* qx, const int32_t* qy, const int32_t* z,
+                                     const int32_t* r, const int32_t* s, const uint32_t* gtab,
+                                     uint8_t* ok_out, long long n) {
+  uint32_t rtab[secp::kRTable * secp::kRWords];
+  const secp::RTable tab{rtab, 1};
+  for (long long i = 0; i < n; ++i) {
+    const long long at = i * secp::kLimbs;
+    const secp::Jac q = secp::ecmul2_lane(true, z + at, r + at, s + at, qx + at, qy + at, gtab, tab);
+    ok_out[i] = secp::verify_result(r + at, s + at, q);
   }
   return 0;
 }

@@ -17,8 +17,11 @@ so one batch of these ops is on the order of 10**5 small kernels whatever
 the batch size.  That is the plain version: on a CUDA tensor
 :func:`ecdsa_recover` launches the hand-written recovery kernel
 (:mod:`.ecrecover`, ``csrc/secp256k1_recover.cu``) instead, and a CPU tensor
-takes :func:`ecdsa_recover_plain`.  :func:`ecdsa_verify` is off the main
-path and stays plain on both.
+takes :func:`ecdsa_recover_plain`.  :func:`ecmul2_base` and
+:func:`ecdsa_verify` do the same with the second kernel of that file
+(:mod:`.ecverify`), their plain versions being :func:`ecmul2_base_plain` and
+:func:`ecdsa_verify_plain`.  The plain versions call one another, never a
+dispatching name, so a plain path on the card launches no kernel.
 """
 
 from __future__ import annotations
@@ -46,8 +49,10 @@ __all__ = [
     "to_affine",
     "is_infinity",
     "ecmul2_base",
+    "ecmul2_base_plain",
     "glv_split",
     "ecdsa_verify",
+    "ecdsa_verify_plain",
     "ecdsa_recover",
     "ecdsa_recover_plain",
 ]
@@ -335,6 +340,26 @@ def _glv_nibbles_msb(k: torch.Tensor) -> torch.Tensor:
 def ecmul2_base(
     k1: torch.Tensor, k2: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor
 ) -> JacobianPoint:
+    """``k1*G + k2*Q``: semi-reduced scalars (below 2N), ``Q`` affine.
+
+    A CUDA tensor launches the kernel (:func:`.ecverify.ecmul2`, counted in
+    ``ecverify.ecmul2.launches``), which takes the four arguments at one
+    batch shape, contiguous, and raises otherwise; its result is canonical
+    limbs, equal to the plain version's as a projective point.  A CPU
+    tensor takes :func:`ecmul2_base_plain`, which broadcasts.
+    """
+    if qx.device.type == "cuda":
+        from . import ecverify  # imports this module
+
+        return ecverify.ecmul2(k1, k2, qx, qy)
+    if qx.device.type != "cpu":
+        raise ValueError(f"ecmul2_base runs on cuda or cpu, not {qx.device}")
+    return ecmul2_base_plain(k1, k2, qx, qy)
+
+
+def ecmul2_base_plain(
+    k1: torch.Tensor, k2: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor
+) -> JacobianPoint:
     """GLV double-scalar multiply: ``k1*G + k2*Q`` in a 33-window ladder.
 
     Four digit streams (|a|*G, |b|*phi(G), and likewise for Q) accumulate
@@ -410,12 +435,31 @@ def ecdsa_verify(
 
     Affine public key ``(qx, qy)``, digest-as-scalar ``z`` (reduced mod N),
     and signature ``(r, s)`` as raw 256-bit values (range-checked here).
+    ``Q`` is not checked to be on the curve.  A CUDA tensor launches the
+    kernel (:func:`.ecverify.verify`, counted in
+    ``ecverify.verify.launches``; one batch shape, contiguous); a CPU
+    tensor takes :func:`ecdsa_verify_plain`.
     """
+    if qx.device.type == "cuda":
+        from . import ecverify  # imports this module
+
+        return ecverify.verify(qx, qy, z, r, s)
+    if qx.device.type != "cpu":
+        raise ValueError(f"ecdsa_verify runs on cuda or cpu, not {qx.device}")
+    return ecdsa_verify_plain(qx, qy, z, r, s)
+
+
+def ecdsa_verify_plain(
+    qx: torch.Tensor, qy: torch.Tensor, z: torch.Tensor, r: torch.Tensor, s: torch.Tensor
+) -> torch.Tensor:
+    """:func:`ecdsa_verify` in PyTorch ops on any device, as in the JAX
+    package: the range checks, ``w = s^-1``, ``u1 = z*w``, ``u2 = r*w``, the
+    GLV ladder, then ``x == r`` or ``x == r + N`` (where ``r < P - N``)."""
     ok_range = _in_scalar_range(r) & _in_scalar_range(s)
     w = _inv_lanes(ORDER, s)
     u1 = fields.mul(ORDER, z, w)
     u2 = fields.mul(ORDER, r, w)
-    pt = ecmul2_base(u1, u2, qx, qy)
+    pt = ecmul2_base_plain(u1, u2, qx, qy)
     not_inf = ~is_infinity(pt)
     zinv = _inv_lanes(FIELD, pt.z)
     x_aff = fields.mul(FIELD, pt.x, fields.sqr(FIELD, zinv))
@@ -476,7 +520,7 @@ def ecdsa_recover_plain(
     # Q = r^-1 * (s*R - z*G)  ==  (-z * r^-1)*G + (s * r^-1)*R
     u1 = fields.mul(ORDER, fields.sub(ORDER, torch.zeros_like(z), z), rinv)
     u2 = fields.mul(ORDER, s, rinv)
-    q = ecmul2_base(u1, u2, x, y_sel)
+    q = ecmul2_base_plain(u1, u2, x, y_sel)
     ok = ok & ~is_infinity(q)
     qx, qy = to_affine(q)
     return qx, qy, ok

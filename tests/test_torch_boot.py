@@ -105,7 +105,7 @@ def test_program_sources_name_the_kernels_each_family_launches():
     assert registry.program_sources("mesh_quorum_certify_8l_dp2") == ("keccak_f1600", "secp256k1_recover",
                                                                        "certify_lanes")
     assert registry.program_sources("bls_aggregate_verify_8v") == ("bls12_381",)
-    assert registry.program_sources("ecmul2_base_8l") == ()  # the plain function
+    assert registry.program_sources("ecmul2_base_8l") == ("secp256k1_recover",)  # its entry secp256k1_ecmul2
     for program in registry.program_registry():
         assert set(registry.program_sources(program)) <= set(_build.SIGNATURES)
 
@@ -277,7 +277,8 @@ def test_build_all_reports_compiled_and_ready(tmp_path, monkeypatch):
 def test_ensure_classifies_cold_by_what_the_build_compiled(tmp_path, monkeypatch):
     """The card path's classification with the build and the launches
     stood in for: a program whose source the call compiled is cold and
-    recorded to the ledger; one whose library was built already is cached;
+    recorded to the ledger (``ecmul2_base_8l`` too: its kernel is built from
+    ``secp256k1_recover``); one whose library was built already is cached;
     a cached second store records nothing."""
     from go_ibft_tpu_torch.obs import ledger
 
@@ -293,12 +294,17 @@ def test_ensure_classifies_cold_by_what_the_build_compiled(tmp_path, monkeypatch
     monkeypatch.setattr(ledger, "record_compile", lambda program, ms, site="", **kw: events.append(program))
     programs = ["digest_words_8l", "ecmul2_base_8l"]
     cold = aot.AOTStore(str(tmp_path / "cache"), device="cuda").ensure(programs)
-    assert {p: s.status for p, s in cold.items()} == {"digest_words_8l": "cold", "ecmul2_base_8l": "cached"}
-    assert events == ["digest_words"] and cold["digest_words_8l"].compile_ms > 0
+    assert {p: s.status for p, s in cold.items()} == {"digest_words_8l": "cold", "ecmul2_base_8l": "cold"}
+    assert events == ["digest_words", "ecmul2_base"] and cold["digest_words_8l"].compile_ms > 0
     cached = aot.AOTStore(str(tmp_path / "cache"), device="cuda").ensure(programs, export=True)
-    assert {s.status for s in cached.values()} == {"cached"} and events == ["digest_words"]
+    assert {s.status for s in cached.values()} == {"cached"} and events == ["digest_words", "ecmul2_base"]
     side = aot.AOTStore(str(tmp_path / "cache")).read_sidecar("digest_words_8l")
     assert side["libraries"] == [_build._target("keccak_f1600").name] and side["exported"] is True
+    side = aot.AOTStore(str(tmp_path / "cache")).read_sidecar("ecmul2_base_8l")
+    assert side["libraries"] == [_build._target("secp256k1_recover").name]
+    mixed = aot.AOTStore(str(tmp_path / "cache"), device="cuda").ensure(["ecmul2_base_8l", "bls_g1_merge_tree_128v"])
+    assert {p: s.status for p, s in mixed.items()} == {"ecmul2_base_8l": "cached", "bls_g1_merge_tree_128v": "cold"}
+    assert events == ["digest_words", "ecmul2_base", "bls_g1_merge_tree"]
 
 
 # -- warm start --------------------------------------------------------------------

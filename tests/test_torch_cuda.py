@@ -12,6 +12,7 @@ card it runs without the repository's conftest:
 Tolerance: bit-exact equality (integer arithmetic).
 """
 
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -26,9 +27,10 @@ from go_ibft_tpu_torch.bench import (
     build_round_workload,
     build_signed_round,
     build_sparse_scalar_lanes,
+    build_verify_lanes,
 )
 from go_ibft_tpu_torch.crypto.backend import ECDSABackend
-from go_ibft_tpu_torch.ops import certify_lanes, ecrecover, keccak_f1600
+from go_ibft_tpu_torch.ops import certify_lanes, ecrecover, ecverify, keccak_f1600
 from go_ibft_tpu_torch.ops import fields as tf
 from go_ibft_tpu_torch.ops import keccak as tk
 from go_ibft_tpu_torch.ops import quorum as tq
@@ -214,6 +216,134 @@ def test_launchers_refuse_cpu_and_malformed_tensors(cuda_device, recovery_lanes)
         assert keccak_f1600.launch_digest(blocks[:0], counts[:0], value_words).shape == (0, 8)
     empty = ecrecover.launch(z[:0], r[:0], s[:0], v[:0])
     assert empty[0].shape == (0, 20) and empty[3].shape == (0,)
+
+
+_ECMUL2 = ("k1", "k2", "qx", "qy")
+_VERIFY = ("qx", "qy", "z", "r", "s")
+
+
+def _affine_ints(pt):
+    """Per lane, ``None`` at infinity, else the affine point as ints."""
+    x, y = sec.to_affine(sec.JacobianPoint(*(c.cpu() for c in pt)))
+    inf = sec.is_infinity(sec.JacobianPoint(*(c.cpu() for c in pt))).numpy()
+    return [None if i else p for i, p in zip(inf, zip(tf.from_limbs(x), tf.from_limbs(y)))]
+
+
+@pytest.fixture(scope="module")
+def verify_lanes():
+    """``bench/lanes.py``'s verification and ``k1*G + k2*Q`` lanes, the
+    plain versions' results on the card (each lane once) and the host
+    oracle's on the lanes whose key is on the curve."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    lanes = build_verify_lanes(8, seed=0)
+    arr = lanes.arrays()
+    dev = torch.device("cuda")
+    ins = {k: torch.from_numpy(np.ascontiguousarray(arr[k])).to(dev) for k in set(_ECMUL2 + _VERIFY)}
+    points = _affine_ints(ecverify.ecmul2_plain(*(ins[k] for k in _ECMUL2)))
+    masks = ecverify.verify_plain(*(ins[k] for k in _VERIFY)).cpu().numpy()
+    return lanes, points, masks, lanes.expected_points(), lanes.expected_masks()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [None, 33, 1024])
+def test_ecmul2_and_verify_kernel_match_plain_and_oracle(cuda_device, verify_lanes, b):
+    """Both entries of the k1*G + k2*Q kernel against their plain versions
+    on the card, lane for lane (off-curve keys and ``x = r + N`` among the
+    lanes), and against the host oracle on the curve."""
+    lanes, points, masks, oracle_points, oracle_masks = verify_lanes
+    arr = lanes.arrays(b)
+    ins = {k: torch.from_numpy(np.ascontiguousarray(arr[k])).to(cuda_device) for k in set(_ECMUL2 + _VERIFY)}
+    before = (ecverify.ecmul2.launches, ecverify.verify.launches)
+    pt = ecverify.ecmul2(*(ins[k] for k in _ECMUL2))
+    ok = ecverify.verify(*(ins[k] for k in _VERIFY))
+    torch.cuda.synchronize()
+    assert (ecverify.ecmul2.launches, ecverify.verify.launches) == (before[0] + 1, before[1] + 1)
+    assert all(int(c.min()) >= 0 and int(c.max()) < 8192 for c in pt)  # canonical limbs
+    got, oks = _affine_ints(pt), ok.cpu().numpy()
+    for row, lane in enumerate(arr["lane"]):
+        label = lanes.labels[lane]
+        assert got[row] == points[lane] and bool(oks[row]) == bool(masks[lane]), label
+        if lane in oracle_points:
+            assert got[row] == oracle_points[lane] and bool(oks[row]) == oracle_masks[lane], label
+
+
+@pytest.mark.cuda
+def test_ecmul2_base_and_ecdsa_verify_on_card_reach_the_kernel(cuda_device, verify_lanes):
+    """The port's ``ecmul2_base`` and ``ecdsa_verify`` on CUDA tensors: one
+    launch each, the same points and mask as the CPU's plain versions."""
+    lanes = verify_lanes[0]
+    arr = lanes.arrays(6)
+    cpu = {k: torch.from_numpy(np.ascontiguousarray(arr[k])) for k in set(_ECMUL2 + _VERIFY)}
+    card = {k: t.to(cuda_device) for k, t in cpu.items()}
+    before = (ecverify.ecmul2.launches, ecverify.verify.launches)
+    pt = sec.ecmul2_base(*(card[k] for k in _ECMUL2))
+    ok = sec.ecdsa_verify(*(card[k] for k in _VERIFY))
+    assert (ecverify.ecmul2.launches, ecverify.verify.launches) == (before[0] + 1, before[1] + 1)
+    assert _affine_ints(pt) == _affine_ints(sec.ecmul2_base(*(cpu[k] for k in _ECMUL2)))
+    assert torch.equal(ok.cpu(), sec.ecdsa_verify(*(cpu[k] for k in _VERIFY)))
+
+
+_BOOT_FAMILY_PROFILE = """
+import json, torch
+from torch.profiler import ProfilerActivity, profile
+from go_ibft_tpu_torch.boot import program_registry
+from go_ibft_tpu_torch.ops import ecverify
+fn, args = program_registry(["ecmul2_base_8l"], device=torch.device("cuda"))["ecmul2_base_8l"]()
+fn(*args)  # build, load, comb upload
+torch.cuda.synchronize()
+before = ecverify.ecmul2.launches
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    torch.cuda._sleep(1000)  # a session's first kernel can go unrecorded
+    out = fn(*args)
+    torch.cuda.synchronize()
+kernels = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name]
+print(json.dumps({"launches": ecverify.ecmul2.launches - before, "kernels": kernels,
+                  "point": [c.cpu().tolist() for c in out]}))
+"""
+
+
+@pytest.mark.cuda
+def test_boot_family_ecmul2_base_is_one_kernel_launch(cuda_device):
+    """The registry's ``ecmul2_base_8l`` warm call on the card: one launch
+    of the ``secp256k1_ecmul2`` entry and, under the profiler, no device
+    kernel beside it but copies (the eager ladder is gone); all-zero
+    scalars give infinity, as (1, 1, 0).  The profiler records the card
+    only in a process's first sessions, so the call runs in a process of
+    its own."""
+    root = Path(__file__).resolve().parent.parent
+    out = subprocess.run([sys.executable, "-c", _BOOT_FAMILY_PROFILE], cwd=root, capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-2000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    kernels = got["kernels"]
+    assert got["launches"] == 1
+    assert sum("secp256k1_ecmul2_kernel" in k for k in kernels) == 1, kernels
+    assert all("secp256k1_ecmul2_kernel" in k or "Memcpy" in k or "Memset" in k for k in kernels), kernels
+    one = [[1] + [0] * 19] * 8
+    assert got["point"] == [one, one, [[0] * 20] * 8]
+
+
+@pytest.mark.cuda
+def test_ecverify_launchers_refuse_and_an_empty_batch_launches_nothing(cuda_device, verify_lanes):
+    arr = verify_lanes[0].arrays(4)
+    k1, k2, qx, qy = (torch.from_numpy(np.ascontiguousarray(arr[k])).to(cuda_device) for k in _ECMUL2)
+    z, r, s = (torch.from_numpy(np.ascontiguousarray(arr[k])).to(cuda_device) for k in ("z", "r", "s"))
+    with pytest.raises(ValueError):
+        ecverify.launch_ecmul2(k1, k2.cpu(), qx, qy)  # two devices
+    with pytest.raises(ValueError):
+        ecverify.launch_ecmul2(k1, k2, qx.t().contiguous().t(), qy)  # not contiguous
+    with pytest.raises(ValueError):
+        ecverify.launch_verify(qx, qy, z, r[:3], s)
+    with pytest.raises(TypeError):
+        ecverify.launch_verify(qx, qy, z.to(torch.int64), r, s)
+    before = (ecverify.ecmul2.launches, ecverify.verify.launches)
+    pt = ecverify.ecmul2(k1[:0], k2[:0], qx[:0], qy[:0])
+    ok = ecverify.verify(qx[:0], qy[:0], z[:0], r[:0], s[:0])
+    torch.cuda.synchronize()
+    assert pt.x.shape == (0, 20) and ok.shape == (0,) and ok.dtype == torch.bool
+    assert (ecverify.ecmul2.launches, ecverify.verify.launches) == before
 
 
 @pytest.mark.cuda
@@ -551,10 +681,17 @@ DEPLOY_SLICE_MODULES = (
 CERTIFY_SLICE_MODULES = ("go_ibft_tpu_torch.ops.certify_lanes", "go_ibft_tpu_torch.ops.quorum")
 
 
+# The verification slice's modules: the k1*G + k2*Q kernel's launchers and
+# their plain versions, and its lane builder.
+ECVERIFY_SLICE_MODULES = ("go_ibft_tpu_torch.ops.ecverify", "go_ibft_tpu_torch.ops.secp256k1",
+                          "go_ibft_tpu_torch.bench.lanes")
+
+
 def test_port_imports_nothing_of_jax():
     """A fresh interpreter where ``import jax`` fails imports every module
-    of ``go_ibft_tpu_torch``, the chain, BLS, serving, cluster, deployment
-    and certify slices' among them; no ``go_ibft_tpu`` module gets loaded."""
+    of ``go_ibft_tpu_torch``, the chain, BLS, serving, cluster, deployment,
+    certify and verification slices' among them; no ``go_ibft_tpu`` module
+    gets loaded."""
     root = Path(__file__).resolve().parent.parent
     code = """
 import importlib, pkgutil, sys
@@ -578,6 +715,7 @@ print(" ".join(names))
     assert set(CLUSTER_SLICE_MODULES) <= names, set(CLUSTER_SLICE_MODULES) - names
     assert set(DEPLOY_SLICE_MODULES) <= names, set(DEPLOY_SLICE_MODULES) - names
     assert set(CERTIFY_SLICE_MODULES) <= names, set(CERTIFY_SLICE_MODULES) - names
+    assert set(ECVERIFY_SLICE_MODULES) <= names, set(ECVERIFY_SLICE_MODULES) - names
 
 
 def test_every_bound_entry_point_is_in_its_source():
@@ -1200,9 +1338,10 @@ def test_mesh_rung_fault_on_the_card_propagates(cuda_device, monkeypatch):
 @pytest.mark.cuda
 def test_boot_store_on_the_card_builds_cold_then_loads_cached(cuda_device, tmp_path):
     """The AOT store on the card: a fresh build cache compiles the digest and
-    recovery sources (their programs cold, recorded to the ledger), a second
-    store on it compiles nothing (every program cached); each program ran
-    its kernels, and a failed build propagates."""
+    recovery sources (their programs cold, recorded to the ledger;
+    ``ecmul2_base_8l`` too, whose kernel is built from the recovery's
+    source), a second store on it compiles nothing (every program cached);
+    each program ran its kernels, and a failed build propagates."""
     from go_ibft_tpu_torch import _build
     from go_ibft_tpu_torch.boot import aot
     from go_ibft_tpu_torch.obs import ledger
@@ -1212,14 +1351,15 @@ def test_boot_store_on_the_card_builds_cold_then_loads_cached(cuda_device, tmp_p
     saved = (_build.BUILD_DIR, buildcache._enabled)
     led = ledger.enable()
     try:
-        before = (tq.digest_words.launches, ecrecover.recover.launches)
+        before = (tq.digest_words.launches, ecrecover.recover.launches, ecverify.ecmul2.launches)
         cold = aot.AOTStore(str(tmp_path / "cache")).ensure(programs)
         assert {p: s.status for p, s in cold.items()} == {
             "digest_words_8l": "cold", "ecdsa_recover_8l": "cold", "round_certify_8l": "cold",
-            "ecmul2_base_8l": "cached"}
+            "ecmul2_base_8l": "cold"}
         assert tq.digest_words.launches - before[0] == 2 and ecrecover.recover.launches - before[1] == 2
+        assert ecverify.ecmul2.launches - before[2] == 1
         events = led.snapshot()["compiles"]
-        assert set(events) == {"digest_words", "ecdsa_recover", "round_certify"}, events
+        assert set(events) == {"digest_words", "ecdsa_recover", "round_certify", "ecmul2_base"}, events
         cached = aot.AOTStore(str(tmp_path / "cache")).ensure(programs)
         assert {s.status for s in cached.values()} == {"cached"}
         assert led.snapshot()["compiles"] == events
