@@ -24,7 +24,8 @@ Phases, in order (any failure exits non-zero and prints no result):
    the scalar edges among them), then ``ops.secp256k1.ecmul2_base`` and
    ``ecdsa_verify`` at 1,024 of those lanes (one launch each, counted from
    0): every row equal to its lane's plain result and, on the curve, to
-   the host oracle;
+   the host oracle; and both with one ``(20,)`` key against the 1,024 rows
+   (broadcast, as the JAX functions take it) equal to the plain versions;
    ``certify_lanes`` on the three rounds' recovered lanes (phases 4-6's;
    the mask alone, one phase, two, and thresholds at each phase's counted
    power - 1, the power and + 1) and on seeded lanes at every lane bucket
@@ -48,7 +49,7 @@ Phases, in order (any failure exits non-zero and prints no result):
    recovery at 1 to 16,384 lanes;
    ``certify_lanes`` at the two rounds' lanes and at 2 x 2,048 lanes x
    2,048 rows, and its launcher's host time back to back; both entries of
-   the ``k1*G + k2*Q`` kernel at 8, 256 and 1,024 lanes (the plain
+   the ``k1*G + k2*Q`` kernel at 8, 256, 1,024 and 16,384 lanes (the plain
    versions at 8), and the registry's ``ecmul2_base_8l`` call profiled: one
    kernel, no eager ladder; time phases 4-5 with CUDA events and the host clock (median
    of 20 calls after warm-up), and profile one 100-validator call: device
@@ -181,7 +182,8 @@ Phases, in order (any failure exits non-zero and prints no result):
 and the recovery kernel of whichever ``go_ibft_tpu_torch`` comes first on
 the import path, so that two checkouts are timed by the same code in one
 call (``digest_only`` below); ``--bls-kernels-only`` does the same for the
-BLS kernels (``bls_kernels_only``), and ``--main-path-ab`` for phase 4's
+BLS kernels (``bls_kernels_only``), ``--ecmul2-only`` for both entries of
+the ``k1*G + k2*Q`` kernel (``ecmul2_only``), and ``--main-path-ab`` for phase 4's
 ``certify_round`` and engine run A (``main_path_ab``).  ``--main-profile`` and
 ``--bls-profile`` only profile phase 7's kernels and calls (``main_profile``)
 and config #4's BLS kernels and one check (``bls_profile``); phases 7 and
@@ -289,9 +291,10 @@ VERIFY_MONT_MULS = 3
 VERIFY_SAFEGCDS = 2
 ECMUL2_BYTES_PER_LANE = (4 + 3) * 20 * 4
 VERIFY_BYTES_PER_LANE = 5 * 20 * 4 + 1
-# Lane counts at which both entries are timed: the boot registry's 8 and the
-# recovery's main-path sizes.
-ECMUL2_LANES = (8, 256, 1024)
+# Lane counts at which both entries are timed: the boot registry's 8, the
+# recovery's main-path sizes, and 16,384, where the card's throughput and
+# not one lane's chain sets the time.
+ECMUL2_LANES = (8, 256, 1024, 16384)
 ECMUL2_ARGS = ("k1", "k2", "qx", "qy")
 VERIFY_ARGS = ("qx", "qy", "z", "r", "s")
 # certify_lanes: the verifier's lane buckets (a phase's lanes) and table
@@ -568,10 +571,23 @@ def ecmul2_holds(report: dict, err: dict, dev, rows: int = 1024):
             check(pts[row] == oracle_points[lane] and masks[row] == oracle_masks[lane],
                   f"ecmul2_base and ecdsa_verify on {dev} == host oracle, {what}")
     report["verify_path_launches"] = path
+    # A broadcast call, as the JAX functions take one: row 0's key against
+    # every row's scalars and signature, against the plain versions of the
+    # same key on each lane.
+    k0 = big["lane"][0]
+    key = (ins["qx"][k0], ins["qy"][k0])
+    ref_masks = ecverify.verify_plain(*key, ins["z"], ins["r"], ins["s"]).tolist()
+    ref_points = points(ecverify.ecmul2_plain(ins["k1"], ins["k2"], *key))[0]
+    b_masks = sec.ecdsa_verify(*key, big["z"], big["r"], big["s"]).tolist()
+    b_points = points(sec.ecmul2_base(big["k1"], big["k2"], *key))[0]
+    for row, lane in enumerate(big["lane"]):
+        check(b_masks[row] == ref_masks[lane] and b_points[row] == ref_points[lane],
+              f"ecdsa_verify and ecmul2_base with one (20,) key on {dev} == plain, lane "
+              f"{lanes.labels[lane]!r}, row {row}")
     log(f"[3] secp256k1_ecmul2 and secp256k1_verify bit-exact against plain on {len(lanes)} lanes "
         f"({', '.join(sorted(set(lanes.labels)))}; plain on {dev} {hold_s:.1f} s), and "
         f"ecmul2_base/ecdsa_verify at {rows} rows == plain and the host oracle ({sum(masks)} verify); "
-        f"launches {path}")
+        f"launches {path}; one (20,) key against the {rows} rows == plain ({sum(b_masks)} verify)")
     return lanes, path
 
 
@@ -2351,7 +2367,7 @@ def validator_phase(report: dict, ident: str, counts, holds, dev=None, small: bo
         log("[13] a ecmul2_base_8l: " + "; ".join(f"{tag} leg {st['status']} in {st['compile_ms']:.1f} ms"
                                                   for tag, st in family.items()) + f" ({ident})")
         check(family["cold"]["status"] == "cold" and family["cached"]["status"] == "cached",
-              "13a: ecmul2_base_8l cold in the cold leg (secp256k1_recover built there), cached in the cached leg")
+              "13a: ecmul2_base_8l cold in the cold leg (secp256k1_ecmul2 built there), cached in the cached leg")
     out["ecmul2_base_8l"] = family
     if card:
         check(cold["report"]["platform"] == "gpu" and cold["report"]["skipped"] == 0, "13a: every family on the card")
@@ -2572,6 +2588,77 @@ def digest_only() -> int:
     return 0
 
 
+def ecmul2_only() -> int:
+    """Time both entries of the ``k1*G + k2*Q`` kernel of the
+    ``go_ibft_tpu_torch`` first on the import path at ECMUL2_LANES lanes
+    (phase 3's valid verification lanes, repeated), so that two checkouts
+    are timed by the same code in one call; run it against each in turn
+    (A B B A):
+
+        PYTHONSAFEPATH=1 PYTHONPATH=<checkout> python3 chip_smoke.py --ecmul2-only
+
+    Builds only the source that holds the two entries.  Per entry and lane
+    count: CUDA events over back-to-back launches (20, or 5 at 16,384
+    lanes) and the time on the card a launch (the profiler, one session
+    over every launch, split by name in launch order); a SHA-256 of the
+    affine points and of the masks at 1,024 lanes, equal across
+    checkouts; the source's ptxas report.  Prints the card's identity, then
+    one JSON line."""
+    import go_ibft_tpu_torch
+    from go_ibft_tpu_torch import _build
+    from go_ibft_tpu_torch.bench import build_verify_lanes
+    from go_ibft_tpu_torch.ops import ecverify
+    from go_ibft_tpu_torch.ops import fields as tf
+    from go_ibft_tpu_torch.ops import secp256k1 as sec
+
+    print(gpu_identity(), flush=True)
+    source = next(name for name, fns in _build.SIGNATURES.items() if "secp256k1_ecmul2" in fns)
+    built = _build.build_all([source])
+    dev = torch.device("cuda")
+    vlanes = build_verify_lanes(8, seed=0)
+    work = []  # (entry, lanes, launches, fn)
+    for b in ECMUL2_LANES:
+        ins = verify_inputs(vlanes, b, dev, labels=("valid",))
+        reps = 5 if b > 4096 else 20
+        work.append(("secp256k1_ecmul2", b, reps,
+                     lambda a=[ins[k] for k in ECMUL2_ARGS]: ecverify.launch_ecmul2(*a)))
+        work.append(("secp256k1_verify", b, reps,
+                     lambda a=[ins[k] for k in VERIFY_ARGS]: ecverify.launch_verify(*a)))
+    out = {"package": os.path.dirname(os.path.abspath(go_ibft_tpu_torch.__file__)), "source": source,
+           "build_s": built.build_s, "events_ms": {}, "device_ms_per_launch": {}, "sha256": {}}
+    for entry, b, reps, fn in work:
+        out["events_ms"].setdefault(entry, {})[str(b)] = cuda_time_ms(fn, reps)
+
+    def run_all():
+        for _, _, reps, fn in work:
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+
+    for _ in range(3):  # again where the session lost a device event
+        events = [(name, ms) for name, ms in profile_call(run_all, ordered=True)["events"]
+                  if "secp256k1_" in name]
+        if len(events) == sum(reps for _, _, reps, _ in work):
+            break
+    check(len(events) == sum(reps for _, _, reps, _ in work), "the profiler recorded every launch")
+    for entry, b, reps, _ in work:
+        times, events = events[:reps], events[reps:]
+        check(all(entry in name for name, _ in times), f"{entry} at {b} lanes in launch order")
+        out["device_ms_per_launch"].setdefault(entry, {})[str(b)] = sum(ms for _, ms in times) / reps
+    ins = verify_inputs(vlanes, 1024, dev)
+    pt = ecverify.launch_ecmul2(*(ins[k] for k in ECMUL2_ARGS))
+    x, y = sec.to_affine(sec.JacobianPoint(*(c.cpu() for c in pt)))
+    inf = sec.is_infinity(sec.JacobianPoint(*(c.cpu() for c in pt)))
+    points = [None if i else xy for i, xy in zip(inf.tolist(), zip(tf.from_limbs(x), tf.from_limbs(y)))]
+    masks = ecverify.launch_verify(*(ins[k] for k in VERIFY_ARGS)).cpu().tolist()
+    out["sha256"] = {"points": hashlib.sha256(repr(points).encode()).hexdigest(),
+                     "masks": hashlib.sha256(repr(masks).encode()).hexdigest()}
+    out["ptxas"] = [line.strip() for line in _build.build_logs.get(source, "").splitlines()
+                    if "registers" in line or "stack frame" in line or "Compiling entry" in line]
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 def main_path_ab() -> int:
     """Time the main path of the ``go_ibft_tpu_torch`` first on the import
     path, as phases 7 and 8 do, so that two checkouts are timed by the same
@@ -2690,8 +2777,8 @@ def main_profile() -> int:
     of a ``MeshBatchVerifier`` over 4 shards of the card (its device events
     in launch order), and the boot registry's ``ecmul2_base_8l`` call in a
     session of its own (its device kernels by name).  Both entries of the
-    ``k1*G + k2*Q`` kernel are profiled at 8, 256 and 1,024 lanes (5
-    launches each) on phase 3's valid verification lanes.  The rounds are
+    ``k1*G + k2*Q`` kernel are profiled at 8, 256, 1,024 and 16,384 lanes
+    (5 launches each) on phase 3's valid verification lanes.  The rounds are
     phase 3's (the same seeds); the 128 x 8
     and 128 x 32 blocks and the states are seeded here.  The kernels'
     session is taken again, up to three times, where the profiler lost a
@@ -2907,6 +2994,8 @@ def main() -> int:
                         help="only profile config #4's BLS kernels and one check (see bls_profile)")
     parser.add_argument("--main-profile", action="store_true",
                         help="only profile phase 7's kernels and certify_round calls (see main_profile)")
+    parser.add_argument("--ecmul2-only", action="store_true",
+                        help="only time the k1*G + k2*Q kernel's entries (see ecmul2_only)")
     parser.add_argument("--main-path-ab", action="store_true",
                         help="only time certify_round and engine run A (see main_path_ab)")
     parser.add_argument("--bls-kernels-only", action="store_true",
@@ -2922,6 +3011,8 @@ def main() -> int:
         return bls_profile()
     if args.bls_kernels_only:
         return bls_kernels_only()
+    if args.ecmul2_only:
+        return ecmul2_only()
     if args.main_path_ab:
         return main_path_ab()
     if args.main_profile:
@@ -3374,9 +3465,9 @@ def main() -> int:
                               "go_ibft_tpu/ops/secp256k1.py:665"),
         "certify_lanes": ("go_ibft_tpu_torch/csrc/certify_lanes.cu",
                           "go_ibft_tpu/verify/batch.py:491"),
-        "secp256k1_ecmul2": ("go_ibft_tpu_torch/csrc/secp256k1_recover.cu",
+        "secp256k1_ecmul2": ("go_ibft_tpu_torch/csrc/secp256k1_ecmul2.cu",
                              "go_ibft_tpu/ops/secp256k1.py:512"),
-        "secp256k1_verify": ("go_ibft_tpu_torch/csrc/secp256k1_recover.cu",
+        "secp256k1_verify": ("go_ibft_tpu_torch/csrc/secp256k1_ecmul2.cu",
                              "go_ibft_tpu/ops/secp256k1.py:625"),
     }
     # The k1*G + k2*Q kernel's entries run on their own paths only: the boot

@@ -22,10 +22,9 @@ over ``[device] * dp`` (a mesh of shards of one device, as the port's
 one-card mesh does), so they never raise :class:`ProgramUnavailable` for
 want of devices.  ``ecmul2_base_8l`` warms the port's
 ``ops/secp256k1.py::ecmul2_base``, on the card one launch of the
-``secp256k1_ecmul2`` entry of ``csrc/secp256k1_recover.cu``, the source
-the recovery kernel is built from.  The BLS families take the port's
-point layout (12 x 32-bit words a coordinate, not the JAX package's
-30 x 13-bit limbs).
+``secp256k1_ecmul2`` entry of ``csrc/secp256k1_ecmul2.cu``.  The BLS
+families take the port's point layout (12 x 32-bit words a coordinate, not
+the JAX package's 30 x 13-bit limbs).
 """
 
 from __future__ import annotations
@@ -49,7 +48,7 @@ ENGINE_LANES = 8
 MESH_DPS = (2, 4, 8)
 
 _KECCAK, _RECOVER, _BLS = "keccak_f1600", "secp256k1_recover", "bls12_381"
-_CERTIFY = "certify_lanes"
+_CERTIFY, _ECMUL2 = "certify_lanes", "secp256k1_ecmul2"
 
 # The CUDA sources (csrc/<name>.cu) each family's kernels come from.
 # "ecdsa_recover" is also the verifier's mask dispatch (``_program_of``):
@@ -65,7 +64,7 @@ _SOURCES: Dict[str, Tuple[str, ...]] = {
     "quorum_certify": (_KECCAK, _RECOVER, _CERTIFY),
     "round_certify": (_KECCAK, _RECOVER, _CERTIFY),
     "ecdsa_recover": (_RECOVER, _CERTIFY),
-    "ecmul2_base": (_RECOVER,),
+    "ecmul2_base": (_ECMUL2,),
     "ici_tick_8n": (_KECCAK,),  # family_of keeps the node suffix
     "mesh_quorum_certify": (_KECCAK, _RECOVER, _CERTIFY),
     "mesh_verify_mask": (_RECOVER, _CERTIFY),

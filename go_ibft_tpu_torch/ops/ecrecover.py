@@ -21,6 +21,9 @@ uploaded once per card.
 Inputs, per lane: ``z`` as ``(..., 8)`` int32 little-endian value words (a
 digest or the proposal hash) or ``(..., 20)`` canonical 13-bit limbs; ``r``,
 ``s`` as ``(..., 20)`` canonical 13-bit limbs; ``v`` as ``(...)`` int32.
+:func:`recover` broadcasts them over their leading axes by the JAX
+``ecdsa_recover``'s rules; :func:`launch` and :func:`recover_plain` take one
+batch shape.
 Outputs: ``x``, ``y`` ``(..., 20)`` canonical limbs, ``addr`` ``(..., 5)``
 stream words, ``ok`` ``(...)`` bool.  Where ``ok`` is false, ``x``, ``y`` and
 ``addr`` are unspecified.
@@ -88,6 +91,24 @@ def _check(z: torch.Tensor, r: torch.Tensor, s: torch.Tensor, v: torch.Tensor) -
         raise ValueError(f"z must be {batch} + (8,) words or (20,) limbs, got {tuple(z.shape)}")
 
 
+def _broadcast(z: torch.Tensor, r: torch.Tensor, s: torch.Tensor, v: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The inputs expanded to the batch shape the JAX ``ecdsa_recover``
+    gives their leading shapes (:func:`~.secp256k1.recover_batch`) and made
+    contiguous, their last axes kept (:func:`launch` and
+    :func:`recover_plain` check those)."""
+    lead = v.shape
+    if (z.shape[:-1] == lead and r.shape[:-1] == lead and s.shape[:-1] == lead
+            and all(t.is_contiguous() for t in (z, r, s, v))):
+        return z, r, s, v  # the main path's call: nothing to expand
+    batch = sec.recover_batch(z.shape[:-1], r.shape[:-1], s.shape[:-1], v.shape)
+
+    def full(t, shape):
+        return t if t.shape == shape and t.is_contiguous() else t.expand(shape).contiguous()
+
+    return (full(z, batch + z.shape[-1:]), full(r, batch + r.shape[-1:]), full(s, batch + s.shape[-1:]),
+            full(v, batch))
+
+
 def launch(z: torch.Tensor, r: torch.Tensor, s: torch.Tensor, v: torch.Tensor) -> _Out:
     """Run ``csrc/secp256k1_recover.cu``; returns ``(x, y, addr, ok)``.
 
@@ -136,17 +157,18 @@ def recover_plain(z: torch.Tensor, r: torch.Tensor, s: torch.Tensor, v: torch.Te
 
 
 def recover(z: torch.Tensor, r: torch.Tensor, s: torch.Tensor, v: torch.Tensor) -> _Out:
-    """Recovery plus address: the kernel on a CUDA tensor, the plain version
-    on a CPU tensor.  No fallback between the two: a failed build or launch
-    raises."""
+    """Recovery plus address, the inputs broadcast first: the kernel on a
+    CUDA tensor, the plain version on a CPU tensor.  No fallback between the
+    two: a failed build or launch raises."""
+    if v.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"recover runs on cuda or cpu, not {v.device}")
+    z, r, s, v = _broadcast(z, r, s, v)
     if v.device.type == "cuda":
         out = launch(z, r, s, v)
         if v.numel():  # an empty batch launches nothing
             _build.count_launch(recover)
         return out
-    if v.device.type == "cpu":
-        return recover_plain(z, r, s, v)
-    raise ValueError(f"recover runs on cuda or cpu, not {v.device}")
+    return recover_plain(z, r, s, v)
 
 
 recover.launches = 0

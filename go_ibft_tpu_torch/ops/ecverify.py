@@ -1,13 +1,15 @@
 """``k1*G + k2*Q`` and ECDSA verification: the CUDA kernel's launchers and
 their plain PyTorch versions.
 
-The kernel, in ``csrc/secp256k1_recover.cu`` beside the recovery kernel
-whose lane arithmetic it shares, replaces the JAX package's XLA programs
-``go_ibft_tpu/ops/secp256k1.py::ecmul2_base`` (entry ``secp256k1_ecmul2``)
-and ``::ecdsa_verify`` (entry ``secp256k1_verify``): two warps per block of
-32 lanes, one launch per batch.  It adds ``k1*G`` from the recovery's
-fixed-base comb (:func:`~go_ibft_tpu_torch.ops.ecrecover.comb_table`,
-uploaded once per card).
+The kernel, ``csrc/secp256k1_ecmul2.cu`` (on the lane arithmetic it shares
+with the recovery kernel, ``csrc/secp256k1.cuh``), replaces the JAX
+package's XLA programs ``go_ibft_tpu/ops/secp256k1.py::ecmul2_base`` (entry
+``secp256k1_ecmul2``) and ``::ecdsa_verify`` (entry ``secp256k1_verify``):
+four warps a block of 8 lanes, a lane's independent field products four at
+a time over a group of four threads, one launch per batch.  It adds
+``k1*G`` from the recovery's fixed-base comb
+(:func:`~go_ibft_tpu_torch.ops.ecrecover.comb_table`, uploaded once per
+card).
 
 * :func:`launch_ecmul2` and :func:`launch_verify` run the kernel on CUDA
   tensors and raise on any fault;
@@ -19,9 +21,13 @@ uploaded once per card).
   kernel for a CUDA tensor (counted in ``ecmul2.launches`` and
   ``verify.launches``), the plain version for a CPU tensor.
 
-Inputs, per lane, all ``(..., 20)`` int32 13-bit limbs of one batch shape
-(no broadcasting): ``k1``, ``k2`` below ``2N``; ``qx``, ``qy`` canonical
-affine; ``z`` (taken mod N), ``r``, ``s`` as raw values, range-checked.
+Inputs, per lane, ``(..., 20)`` int32 13-bit limbs: ``k1``, ``k2`` below
+``2N``; ``qx``, ``qy`` canonical affine; ``z`` (taken mod N), ``r``, ``s``
+as raw values, range-checked.  The wrappers and the plain versions
+broadcast the inputs over their leading axes by the JAX functions' rules
+(one key against many scalars or signatures:
+:func:`~go_ibft_tpu_torch.ops.secp256k1.ecmul2_batch`, ``verify_batch``);
+the launchers take one batch shape, contiguous.
 Outputs: ``k1*G + k2*Q`` as a Jacobian point of canonical limbs, ``Z == 0``
 at infinity (the kernel's equals the plain version's as a projective
 point, not limb for limb), or the verification mask ``(...)`` bool.
@@ -42,11 +48,15 @@ __all__ = ["launch_ecmul2", "launch_verify", "ecmul2_plain", "verify_plain", "ec
 _L = 20  # limbs per scalar / coordinate
 
 
-def _check(named: Sequence[Tuple[str, torch.Tensor]]) -> Tuple[int, ...]:
-    """Every input int32 ``(..., 20)`` of one batch shape; returns it."""
+def _dtypes(named: Sequence[Tuple[str, torch.Tensor]]) -> None:
     for name, t in named:
         if t.dtype != torch.int32:
             raise TypeError(f"input {name} must be int32, got {t.dtype}")
+
+
+def _check(named: Sequence[Tuple[str, torch.Tensor]]) -> Tuple[int, ...]:
+    """Every input int32 ``(..., 20)`` of one batch shape; returns it."""
+    _dtypes(named)
     shape = tuple(named[0][1].shape)
     if not shape or shape[-1] != _L or any(tuple(t.shape) != shape for _, t in named):
         raise ValueError(
@@ -54,6 +64,22 @@ def _check(named: Sequence[Tuple[str, torch.Tensor]]) -> Tuple[int, ...]:
             f"{ {name: tuple(t.shape) for name, t in named} }"
         )
     return shape[:-1]
+
+
+def _broadcast(named: Sequence[Tuple[str, torch.Tensor]], batch_of) -> Tuple[torch.Tensor, ...]:
+    """The int32 inputs, each ending in its 20 limbs, expanded to the batch
+    shape ``batch_of`` gives their leading shapes (the JAX function's
+    broadcasting) and made contiguous: what the launchers take."""
+    _dtypes(named)
+    for name, t in named:
+        if t.dim() == 0 or t.shape[-1] != _L:
+            raise ValueError(f"input {name} must be (..., {_L}) limbs, got {tuple(t.shape)}")
+    shape = named[0][1].shape
+    if all(t.shape == shape and t.is_contiguous() for _, t in named):
+        return tuple(t for _, t in named)
+    full = batch_of(*(t.shape[:-1] for _, t in named)) + (_L,)
+    return tuple(t if t.shape == full and t.is_contiguous() else t.expand(full).contiguous()
+                 for _, t in named)
 
 
 def _on_card(named: Sequence[Tuple[str, torch.Tensor]]) -> torch.device:
@@ -75,7 +101,7 @@ def _run(entry: str, dev: torch.device, *args) -> None:
     """Launch ``entry`` on ``dev``'s current stream; raise on a fault."""
     fn = _entries.get(entry)
     if fn is None:
-        fn = _entries[entry] = getattr(_build.load("secp256k1_recover"), entry)
+        fn = _entries[entry] = getattr(_build.load("secp256k1_ecmul2"), entry)
     # The card's current stream as a raw pointer.  It and the kernel's
     # module belong to the tensors' card, which is made current for the
     # launch where the caller's card is another.
@@ -129,51 +155,46 @@ def launch_verify(
     return ok
 
 
-def ecmul2_plain(
-    k1: torch.Tensor, k2: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor
-) -> sec.JacobianPoint:
-    """The ``ecmul2`` entry's function in PyTorch ops, on any device."""
-    _check((("k1", k1), ("k2", k2), ("qx", qx), ("qy", qy)))
-    return sec.ecmul2_base_plain(k1, k2, qx, qy)
+# The plain versions: the same functions in PyTorch ops, on any device,
+# broadcasting as the JAX functions do.
+ecmul2_plain = sec.ecmul2_base_plain
+verify_plain = sec.ecdsa_verify_plain
 
 
-def verify_plain(
-    qx: torch.Tensor, qy: torch.Tensor, z: torch.Tensor, r: torch.Tensor, s: torch.Tensor
-) -> torch.Tensor:
-    """The ``verify`` entry's function in PyTorch ops, on any device."""
-    _check((("qx", qx), ("qy", qy), ("z", z), ("r", r), ("s", s)))
-    return sec.ecdsa_verify_plain(qx, qy, z, r, s)
+def _route(wrapper, t: torch.Tensor) -> str:
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{wrapper.__name__} runs on cuda or cpu, not {t.device}")
+    return t.device.type
 
 
 def ecmul2(
     k1: torch.Tensor, k2: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor
 ) -> sec.JacobianPoint:
-    """``k1*G + k2*Q``: the kernel on a CUDA tensor, the plain version on a
-    CPU tensor.  No fallback between the two: a failed build or launch
-    raises."""
-    if qx.device.type == "cuda":
-        out = launch_ecmul2(k1, k2, qx, qy)
-        if out.z.numel():  # an empty batch launches nothing
-            _build.count_launch(ecmul2)
-        return out
-    if qx.device.type == "cpu":
-        return ecmul2_plain(k1, k2, qx, qy)
-    raise ValueError(f"ecmul2 runs on cuda or cpu, not {qx.device}")
+    """``k1*G + k2*Q``, the inputs broadcast first: the kernel on a CUDA
+    tensor, the plain version on a CPU tensor.  No fallback between the
+    two: a failed build or launch raises."""
+    route = _route(ecmul2, qx)
+    args = _broadcast((("k1", k1), ("k2", k2), ("qx", qx), ("qy", qy)), sec.ecmul2_batch)
+    if route == "cpu":
+        return ecmul2_plain(*args)
+    out = launch_ecmul2(*args)
+    if out.z.numel():  # an empty batch launches nothing
+        _build.count_launch(ecmul2)
+    return out
 
 
 def verify(
     qx: torch.Tensor, qy: torch.Tensor, z: torch.Tensor, r: torch.Tensor, s: torch.Tensor
 ) -> torch.Tensor:
-    """The verification mask: the kernel on a CUDA tensor, the plain
-    version on a CPU tensor, as :func:`ecmul2`."""
-    if qx.device.type == "cuda":
-        ok = launch_verify(qx, qy, z, r, s)
-        if ok.numel():
-            _build.count_launch(verify)
-        return ok
-    if qx.device.type == "cpu":
-        return verify_plain(qx, qy, z, r, s)
-    raise ValueError(f"verify runs on cuda or cpu, not {qx.device}")
+    """The verification mask, as :func:`ecmul2`."""
+    route = _route(verify, qx)
+    args = _broadcast((("qx", qx), ("qy", qy), ("z", z), ("r", r), ("s", s)), sec.verify_batch)
+    if route == "cpu":
+        return verify_plain(*args)
+    ok = launch_verify(*args)
+    if ok.numel():
+        _build.count_launch(verify)
+    return ok
 
 
 ecmul2.launches = 0

@@ -49,6 +49,9 @@ __all__ = [
     "to_affine",
     "is_infinity",
     "ecmul2_base",
+    "ecmul2_batch",
+    "verify_batch",
+    "recover_batch",
     "ecmul2_base_plain",
     "glv_split",
     "ecdsa_verify",
@@ -337,16 +340,60 @@ def _glv_nibbles_msb(k: torch.Tensor) -> torch.Tensor:
     return nib.movedim(-1, 0)
 
 
+def _broadcast_shape(*shapes) -> Tuple[int, ...]:
+    """numpy's broadcast of ``shapes`` (plain Python: ``torch.broadcast_shapes``
+    costs tens of microseconds a call, on the recovery's launch path)."""
+    if all(tuple(s) == tuple(shapes[0]) for s in shapes):
+        return tuple(shapes[0])
+    rank = max(len(s) for s in shapes)
+    out = []
+    for dims in zip(*((1,) * (rank - len(s)) + tuple(s) for s in shapes)):
+        sizes = {d for d in dims if d != 1}
+        if len(sizes) > 1:
+            raise ValueError(f"leading shapes {[tuple(s) for s in shapes]} do not broadcast")
+        out.append(sizes.pop() if sizes else 1)
+    return tuple(out)
+
+
+def ecmul2_batch(k1_lead, k2_lead, qx_lead, qy_lead) -> Tuple[int, ...]:
+    """The batch shape :func:`ecmul2_base` gives inputs of these leading
+    shapes, by the JAX function's rules: the key broadcasts to the batch,
+    and the two scalars, whose digit streams and signs are stacked, share
+    one leading shape of the batch's rank.  Raises ``ValueError`` where the
+    JAX function raises."""
+    batch = _broadcast_shape(k1_lead, k2_lead, qx_lead)
+    if (tuple(k1_lead) != tuple(k2_lead) or len(k1_lead) != len(batch)
+            or _broadcast_shape(qy_lead, batch) != batch):
+        raise ValueError(f"ecmul2_base takes k1 and k2 of one leading shape, of the batch's rank, and a key "
+                         f"that broadcasts to it; got {tuple(k1_lead)}, {tuple(k2_lead)}, {tuple(qx_lead)}, "
+                         f"{tuple(qy_lead)}")
+    return batch
+
+
+def verify_batch(qx_lead, qy_lead, z_lead, r_lead, s_lead) -> Tuple[int, ...]:
+    """The batch shape of :func:`ecdsa_verify`, by the JAX function's rules:
+    its ladder's scalars are ``z * s^-1`` and ``r * s^-1``."""
+    return ecmul2_batch(_broadcast_shape(z_lead, s_lead), _broadcast_shape(r_lead, s_lead), qx_lead, qy_lead)
+
+
+def recover_batch(z_lead, r_lead, s_lead, v_lead) -> Tuple[int, ...]:
+    """The batch shape of :func:`ecdsa_recover`, by the JAX function's
+    rules: its ladder's scalars are ``-z * r^-1`` and ``s * r^-1``, its key
+    ``(r, y)`` with y's parity from ``v``."""
+    return ecmul2_batch(_broadcast_shape(z_lead, r_lead), _broadcast_shape(s_lead, r_lead), r_lead,
+                        _broadcast_shape(r_lead, v_lead))
+
+
 def ecmul2_base(
     k1: torch.Tensor, k2: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor
 ) -> JacobianPoint:
     """``k1*G + k2*Q``: semi-reduced scalars (below 2N), ``Q`` affine.
 
-    A CUDA tensor launches the kernel (:func:`.ecverify.ecmul2`, counted in
-    ``ecverify.ecmul2.launches``), which takes the four arguments at one
-    batch shape, contiguous, and raises otherwise; its result is canonical
-    limbs, equal to the plain version's as a projective point.  A CPU
-    tensor takes :func:`ecmul2_base_plain`, which broadcasts.
+    Both routes broadcast the inputs over their leading axes, as the JAX
+    function does.  A CUDA tensor launches the kernel
+    (:func:`.ecverify.ecmul2`, counted in ``ecverify.ecmul2.launches``),
+    whose result is canonical limbs, equal to the plain version's as a
+    projective point.  A CPU tensor takes :func:`ecmul2_base_plain`.
     """
     if qx.device.type == "cuda":
         from . import ecverify  # imports this module
@@ -435,10 +482,11 @@ def ecdsa_verify(
 
     Affine public key ``(qx, qy)``, digest-as-scalar ``z`` (reduced mod N),
     and signature ``(r, s)`` as raw 256-bit values (range-checked here).
-    ``Q`` is not checked to be on the curve.  A CUDA tensor launches the
-    kernel (:func:`.ecverify.verify`, counted in
-    ``ecverify.verify.launches``; one batch shape, contiguous); a CPU
-    tensor takes :func:`ecdsa_verify_plain`.
+    ``Q`` is not checked to be on the curve.  The inputs broadcast over
+    their leading axes (one key against many signatures).  A CUDA tensor
+    launches the kernel (:func:`.ecverify.verify`, counted in
+    ``ecverify.verify.launches``); a CPU tensor takes
+    :func:`ecdsa_verify_plain`.
     """
     if qx.device.type == "cuda":
         from . import ecverify  # imports this module
@@ -483,7 +531,8 @@ def ecdsa_recover(
     mod N), ``r``, ``s`` raw 20-limb values (range-checked here), ``v`` the
     recovery id (0 or 1; ids 2/3 are rejected).  Returns ``(x, y, ok)`` with
     canonical affine coordinates; lanes with ``ok == False`` have unspecified
-    coordinates.  A CUDA tensor launches the recovery kernel (counted in
+    coordinates.  The inputs broadcast over their leading axes.  A CUDA
+    tensor launches the recovery kernel (counted in
     ``ecrecover.recover.launches``); a CPU tensor takes
     :func:`ecdsa_recover_plain`.
     """

@@ -105,7 +105,7 @@ def test_program_sources_name_the_kernels_each_family_launches():
     assert registry.program_sources("mesh_quorum_certify_8l_dp2") == ("keccak_f1600", "secp256k1_recover",
                                                                        "certify_lanes")
     assert registry.program_sources("bls_aggregate_verify_8v") == ("bls12_381",)
-    assert registry.program_sources("ecmul2_base_8l") == ("secp256k1_recover",)  # its entry secp256k1_ecmul2
+    assert registry.program_sources("ecmul2_base_8l") == ("secp256k1_ecmul2",)
     for program in registry.program_registry():
         assert set(registry.program_sources(program)) <= set(_build.SIGNATURES)
 
@@ -278,7 +278,7 @@ def test_ensure_classifies_cold_by_what_the_build_compiled(tmp_path, monkeypatch
     """The card path's classification with the build and the launches
     stood in for: a program whose source the call compiled is cold and
     recorded to the ledger (``ecmul2_base_8l`` too: its kernel is built from
-    ``secp256k1_recover``); one whose library was built already is cached;
+    ``secp256k1_ecmul2``); one whose library was built already is cached;
     a cached second store records nothing."""
     from go_ibft_tpu_torch.obs import ledger
 
@@ -301,7 +301,7 @@ def test_ensure_classifies_cold_by_what_the_build_compiled(tmp_path, monkeypatch
     side = aot.AOTStore(str(tmp_path / "cache")).read_sidecar("digest_words_8l")
     assert side["libraries"] == [_build._target("keccak_f1600").name] and side["exported"] is True
     side = aot.AOTStore(str(tmp_path / "cache")).read_sidecar("ecmul2_base_8l")
-    assert side["libraries"] == [_build._target("secp256k1_recover").name]
+    assert side["libraries"] == [_build._target("secp256k1_ecmul2").name]
     mixed = aot.AOTStore(str(tmp_path / "cache"), device="cuda").ensure(["ecmul2_base_8l", "bls_g1_merge_tree_128v"])
     assert {p: s.status for p, s in mixed.items()} == {"ecmul2_base_8l": "cached", "bls_g1_merge_tree_128v": "cold"}
     assert events == ["digest_words", "ecmul2_base", "bls_g1_merge_tree"]

@@ -284,6 +284,62 @@ def test_ecmul2_base_and_ecdsa_verify_on_card_reach_the_kernel(cuda_device, veri
     assert torch.equal(ok.cpu(), sec.ecdsa_verify(*(cpu[k] for k in _VERIFY)))
 
 
+@pytest.mark.cuda
+def test_ecmul2_base_and_ecdsa_verify_broadcast_on_card(cuda_device, verify_lanes):
+    """The card route broadcasts by the JAX functions' rules: one ``(20,)``
+    key against 64 signatures through ``sec.ecdsa_verify`` and against 64
+    scalar pairs through ``sec.ecmul2_base``, and a transposed (not
+    contiguous) view, each equal to the explicitly expanded call and to the
+    plain version; a ``(20,)`` k1 against 64 k2, which the JAX
+    ``ecmul2_base`` refuses (its digit streams are stacked at the scalars'
+    own shape), raises."""
+    lanes = verify_lanes[0]
+    arr = lanes.arrays(64)
+    card = {k: torch.from_numpy(np.ascontiguousarray(arr[k])).to(cuda_device) for k in set(_ECMUL2 + _VERIFY)}
+    row = [lanes.labels[i] for i in arr["lane"]].index("valid")
+
+    def full(t):
+        return t.expand(64, 20).contiguous()
+
+    qx, qy = card["qx"][row], card["qy"][row]
+    ok = sec.ecdsa_verify(qx, qy, card["z"], card["r"], card["s"])
+    assert ok.shape == (64,) and bool(ok[row])
+    assert torch.equal(ok, sec.ecdsa_verify(full(qx), full(qy), card["z"], card["r"], card["s"]))
+    assert torch.equal(ok, ecverify.verify_plain(qx, qy, card["z"], card["r"], card["s"]))
+    pt = sec.ecmul2_base(card["k1"], card["k2"], qx, qy)
+    assert pt.x.shape == (64, 20)
+    assert _affine_ints(pt) == _affine_ints(sec.ecmul2_base(card["k1"], card["k2"], full(qx), full(qy)))
+    assert _affine_ints(pt) == _affine_ints(ecverify.ecmul2_plain(card["k1"], card["k2"], qx, qy))
+    with pytest.raises(ValueError):
+        sec.ecmul2_base(card["k1"][row], card["k2"], card["qx"], card["qy"])
+    qx_t = card["qx"].t().contiguous().t()  # the same values, column-major
+    assert not qx_t.is_contiguous()
+    before = ecverify.ecmul2.launches
+    pt_t = sec.ecmul2_base(card["k1"], card["k2"], qx_t, card["qy"])
+    assert ecverify.ecmul2.launches == before + 1
+    assert _affine_ints(pt_t) == _affine_ints(sec.ecmul2_base(*(card[k] for k in _ECMUL2)))
+
+
+@pytest.mark.cuda
+def test_ecdsa_recover_broadcasts_on_card(cuda_device, recovery_lanes):
+    """``sec.ecdsa_recover`` and ``ecrecover.recover`` on the card take one
+    ``(20,)`` digest against many signatures, and a view that is not
+    contiguous, as the JAX ``ecdsa_recover`` broadcasts: the same as the
+    expanded call."""
+    arr = recovery_lanes[0].arrays(33)
+    z, r, s, v = (torch.from_numpy(np.ascontiguousarray(arr[k])).to(cuda_device)
+                  for k in ("z_limbs", "r", "s", "v"))
+    one = z[0]
+    x, y, ok = sec.ecdsa_recover(one, r, s, v)
+    xe, ye, oke = sec.ecdsa_recover(one.expand(33, 20).contiguous(), r, s, v)
+    assert x.shape == (33, 20) and torch.equal(ok, oke)
+    assert torch.equal(x[ok], xe[oke]) and torch.equal(y[ok], ye[oke])
+    r_t = r.t().contiguous().t()
+    got = ecrecover.recover(z, r_t, s, v)
+    want = ecrecover.recover(z, r, s, v)
+    assert torch.equal(got[3], want[3]) and torch.equal(got[2][want[3]], want[2][want[3]])
+
+
 _BOOT_FAMILY_PROFILE = """
 import json, torch
 from torch.profiler import ProfilerActivity, profile
@@ -682,9 +738,9 @@ CERTIFY_SLICE_MODULES = ("go_ibft_tpu_torch.ops.certify_lanes", "go_ibft_tpu_tor
 
 
 # The verification slice's modules: the k1*G + k2*Q kernel's launchers and
-# their plain versions, and its lane builder.
+# their plain versions, its lane builder and its parts timed on the card.
 ECVERIFY_SLICE_MODULES = ("go_ibft_tpu_torch.ops.ecverify", "go_ibft_tpu_torch.ops.secp256k1",
-                          "go_ibft_tpu_torch.bench.lanes")
+                          "go_ibft_tpu_torch.bench.lanes", "go_ibft_tpu_torch.bench.ecmul2_variants")
 
 
 def test_port_imports_nothing_of_jax():

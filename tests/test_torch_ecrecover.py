@@ -1,8 +1,8 @@
 """The recovery-plus-address path of the port on the CPU.
 
 * ``ops/ecrecover.py``: the wrapper takes the plain version for a CPU
-  tensor, counts no launch, and its launcher refuses what the kernel does
-  not take; the plain version (digest words in, address out) is held
+  tensor, counts no launch, and broadcasts by the JAX function's rules;
+  its launcher refuses what the kernel does not take; the plain version (digest words in, address out) is held
   against the JAX package's host oracle ``go_ibft_tpu.crypto.ecdsa.recover``
   and ``pubkey_to_address`` on the seeded lanes of ``bench/lanes.py``,
   adversarial lanes included.
@@ -98,6 +98,21 @@ def test_recover_on_cpu_runs_plain_and_counts_no_launch(lanes):
     x, y, addr, ok = ecrecover.recover(*_inputs(arr))
     assert ecrecover.recover.launches == before
     assert x.shape == (2, 20) and addr.shape == (2, 5) and ok.dtype == torch.bool
+
+
+def test_recover_broadcasts_by_the_jax_rules(lanes):
+    """``recover`` broadcasts as the JAX ``ecdsa_recover`` does: one digest
+    against two signatures gives the expanded call's result; a view that is
+    not contiguous reaches the launcher contiguous; r and s of fewer leading
+    axes than z, which the JAX function refuses, raise."""
+    z, r, s, v = _inputs(lanes.arrays(2))
+    one = ecrecover.recover(z[0], r, s, v)
+    full = ecrecover.recover(z[0].expand(2, 8).contiguous(), r, s, v)
+    assert one[0].shape == (2, 20) and all(torch.equal(a, b) for a, b in zip(one, full))
+    zb, rb, sb, vb = ecrecover._broadcast(z, r.t().contiguous().t(), s, v[0])
+    assert all(t.is_contiguous() for t in (zb, rb, sb, vb)) and vb.shape == (2,) and torch.equal(rb, r)
+    with pytest.raises(ValueError):
+        ecrecover.recover(z, r[0], s[0], v)
 
 
 def test_recovery_launch_refuses_cpu_and_malformed_inputs(lanes):

@@ -1,20 +1,24 @@
 """``k1*G + k2*Q`` and ECDSA verification in the port on the CPU.
 
-* ``csrc/secp256k1_recover.cu``'s second kernel (entries
-  ``secp256k1_ecmul2`` and ``secp256k1_verify``) has a portable C++ twin of
-  every PTX chain (``csrc/lane.cuh``), so a host compiler builds it; the
-  host build (``secp256k1_ecmul2_host``, ``secp256k1_verify_host``: a
-  lane's two warps' parts one after the other) is held against the port's
-  plain versions on every lane of ``bench/lanes.py::build_verify_lanes``
+* ``csrc/secp256k1_ecmul2.cu`` (entries ``secp256k1_ecmul2`` and
+  ``secp256k1_verify``) has a portable C++ twin of every PTX chain and of
+  the shuffle layer (``csrc/lane.cuh``: a group's four threads run as a
+  loop), so a host compiler builds it; the host build
+  (``secp256k1_ecmul2_host``, ``secp256k1_verify_host``: a lane's four
+  roles one after the other, in the order of the card's barriers) is held
+  against the port's plain versions on every lane of
+  ``bench/lanes.py::build_verify_lanes``
   (off-curve keys, ``x = r + N``, out-of-range ``r``/``s``, infinity and
   the scalar edges among them), and both against the JAX package's host
   oracle (``go_ibft_tpu.crypto.ecdsa``: ``verify``, and ``scalar_mul`` +
   ``_add``) on the lanes whose key is on the curve (the oracle rejects any
-  other key).
+  other key); its products (``secp256k1_fp_mul_host``) against Python's
+  integers on operands whose carries cross every word.
 * ``ops/ecverify.py``: the wrappers take the plain version for a CPU
-  tensor and count no launch; the launchers refuse what the kernel does
-  not take; the recovery's plain path never reaches the dispatching
-  ``ecmul2_base``.
+  tensor and count no launch, and broadcast by the JAX functions' rules
+  (their batch shapes against ``jax.eval_shape`` of the JAX functions);
+  the launchers refuse what the kernel does not take; the recovery's plain
+  path never reaches the dispatching ``ecmul2_base``.
 * Slow tier: the plain versions against the JAX device ``ecmul2_base`` /
   ``ecdsa_verify`` on the off-curve and edge lanes, at the 4- and 6-lane
   shapes ``tests/test_secp256k1.py`` compiles (the XLA:CPU ladder takes
@@ -90,12 +94,14 @@ def host_kernel(tmp_path_factory):
     lib = tmp_path_factory.mktemp("lane") / "secp256k1_ecmul2_host.so"
     subprocess.run(
         [cxx, "-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC", "-I", str(_build.CSRC),
-         "-o", str(lib), str(_build.CSRC / "secp256k1_recover.cu")],
+         "-o", str(lib), str(_build.CSRC / "secp256k1_ecmul2.cu")],
         check=True, capture_output=True, timeout=300,
     )
     dll = ctypes.CDLL(str(lib))
     dll.secp256k1_ecmul2_host.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong]
     dll.secp256k1_verify_host.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong]
+    dll.secp256k1_fp_mul_host.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                                          ctypes.c_longlong]
     gtab = np.ascontiguousarray(ecrecover.comb_table())
 
     def ptrs(arr, names):
@@ -114,7 +120,19 @@ def host_kernel(tmp_path_factory):
                                          len(ok)) == 0
         return ok.astype(bool)
 
-    return ecmul2, verify
+    def fp_mul(a, b, form):
+        """The kernel's products of the values ``a``, ``b`` (Python ints
+        below 2**256) as its point operations run them: four a step of a
+        group (``"mul"``, ``"sqr"`` of ``a``), or each spread over a group
+        (``"split"``)."""
+        words = [np.frombuffer(b"".join(v.to_bytes(32, "little") for v in vals), dtype="<u4").copy()
+                 for vals in (a, b)]
+        out = np.zeros(8 * len(a), np.uint32)
+        assert dll.secp256k1_fp_mul_host(words[0].ctypes.data, words[1].ctypes.data,
+                                         ("mul", "sqr", "split").index(form), out.ctypes.data, len(a)) == 0
+        return [int.from_bytes(out[8 * i:8 * i + 8].tobytes(), "little") for i in range(len(a))]
+
+    return ecmul2, verify, fp_mul
 
 
 @pytest.fixture(scope="module")
@@ -199,6 +217,31 @@ def test_host_build_matches_plain_on_repeated_lanes(lanes, plain, host_kernel):
         assert pts[row] == plain[0][lane] and bool(oks[row]) == bool(plain[1][lane])
 
 
+# Operands whose products carry across every word: all-ones words, P - 1,
+# N - 1, 2**255, and the squares of the first three (mod P).
+_ONES = 2**256 - 1
+_EDGES = (_ONES, sec.P - 1, sec.N - 1, 2**255, _ONES**2 % sec.P, (sec.P - 1) ** 2 % sec.P,
+          (sec.N - 1) ** 2 % sec.P)
+
+
+@pytest.mark.parametrize("form", ["mul", "sqr", "split"])
+def test_grouped_products_at_the_carry_edges(host_kernel, form):
+    """The kernel's field products (four a step of a group, the square, and
+    one product spread over a group's threads, whose partial sums carry
+    across every thread's words), on every pair of edge operands (and a
+    seeded random tail, so the last step is a partial one) against
+    Python's integers mod P."""
+    rng = np.random.default_rng(17)
+    rand = [int.from_bytes(rng.bytes(32), "little") for _ in range(5)]
+    vals = list(_EDGES) + rand
+    square = form == "sqr"
+    a = [x for x in vals for _ in vals] if not square else vals
+    b = [y for _ in vals for y in vals] if not square else vals
+    got = host_kernel[2](a, b, form)
+    want = [x * x % sec.P for x in a] if square else [x * y % sec.P for x, y in zip(a, b)]
+    assert got == want
+
+
 def test_wrappers_on_cpu_run_plain_and_count_no_launch(lanes):
     arr = lanes.arrays(2)
     before = (ecverify.ecmul2.launches, ecverify.verify.launches)
@@ -234,6 +277,90 @@ def test_launchers_refuse_cpu_and_malformed_inputs(lanes):
         ecverify.launch_verify(qx, qy, z, r, s.t().contiguous().t())
 
 
+def test_a_broadcast_call_reaches_the_launcher_at_one_contiguous_shape(lanes, monkeypatch):
+    """The card route of ``ecverify.ecmul2`` / ``verify`` (its route forced,
+    its launcher recording) hands the launcher the inputs expanded to the
+    JAX function's batch shape, contiguous, with the values of the
+    explicitly expanded call: one ``(20,)`` key against 3 scalar pairs or
+    signatures, and a transposed view."""
+    arr = lanes.arrays(3)
+    t = {k: torch.from_numpy(np.ascontiguousarray(arr[k])) for k in set(_ECMUL2 + _VERIFY)}
+    seen = []
+
+    def record(*args):
+        seen.append(args)
+        return sec.point_infinity((3,), "cpu") if len(args) == 4 else torch.zeros(3, dtype=torch.bool)
+
+    monkeypatch.setattr(ecverify, "_route", lambda wrapper, x: "cuda")
+    monkeypatch.setattr(ecverify, "launch_ecmul2", record)
+    monkeypatch.setattr(ecverify, "launch_verify", record)
+    monkeypatch.setattr(ecverify._build, "count_launch", lambda wrapper: None)
+    qx_t = t["qx"].t().contiguous().t()
+    ecverify.ecmul2(t["k1"], t["k2"], t["qx"][1], t["qy"][1])
+    ecverify.ecmul2(t["k1"], t["k2"], qx_t, t["qy"])
+    ecverify.verify(t["qx"][1], t["qy"][1], t["z"], t["r"], t["s"])
+    ecverify.verify(t["qx"], t["qy"], t["z"][2], t["r"], t["s"])
+    wants = [
+        (t["k1"], t["k2"], t["qx"][1].expand(3, 20), t["qy"][1].expand(3, 20)),
+        tuple(t[k] for k in _ECMUL2),
+        (t["qx"][1].expand(3, 20), t["qy"][1].expand(3, 20), t["z"], t["r"], t["s"]),
+        (t["qx"], t["qy"], t["z"][2].expand(3, 20), t["r"], t["s"]),
+    ]
+    assert len(seen) == len(wants)
+    for got, want in zip(seen, wants):
+        for g, w in zip(got, want):
+            assert g.shape == (3, 20) and g.is_contiguous() and torch.equal(g, w)
+    with pytest.raises(ValueError):  # the JAX ecmul2_base refuses a k1 of fewer leading axes
+        ecverify.ecmul2(t["k1"][0], t["k2"], t["qx"], t["qy"])
+    with pytest.raises(ValueError):
+        ecverify.verify(t["qx"], t["qy"], t["z"][:2], t["r"], t["s"])
+
+
+# Leading shapes of (k1, k2, qx, qy), (qx, qy, z, r, s) and (z, r, s, v):
+# where the JAX functions broadcast and where they raise.
+_BATCH_CASES = [
+    ("ecmul2_base", ((4,), (4,), (), ())),
+    ("ecmul2_base", ((), (4,), (4,), (4,))),
+    ("ecmul2_base", ((1,), (4,), (4,), (4,))),
+    ("ecmul2_base", ((2, 1), (2, 1), (3,), (3,))),
+    ("ecmul2_base", ((4,), (4,), (4,), (2, 4))),
+    ("ecdsa_verify", ((), (), (4,), (4,), (4,))),
+    ("ecdsa_verify", ((4,), (4,), (), (4,), (4,))),
+    ("ecdsa_verify", ((4,), (4,), (4,), (), ())),
+    ("ecdsa_recover", ((), (4,), (4,), (4,))),
+    ("ecdsa_recover", ((4,), (4,), (4,), ())),
+    ("ecdsa_recover", ((4,), (), (), (4,))),
+]
+
+
+@pytest.mark.parametrize("fn, leads", _BATCH_CASES)
+def test_broadcasting_follows_the_jax_functions(fn, leads):
+    """The port's batch shapes (``sec.ecmul2_batch``, ``verify_batch``,
+    ``recover_batch``, which the card routes expand to) are the JAX
+    functions', and the port raises where they raise (traced shapes only,
+    ``jax.eval_shape``: nothing compiles)."""
+    import jax
+    import jax.numpy as jnp
+
+    from go_ibft_tpu.ops import secp256k1 as jsec
+
+    args = [jax.ShapeDtypeStruct(lead if fn == "ecdsa_recover" and i == 3 else lead + (20,), jnp.int32)
+            for i, lead in enumerate(leads)]
+    try:
+        out = jax.eval_shape(getattr(jsec, fn), *args)
+        want = tuple((out[2] if fn == "ecdsa_recover" else out.x if fn == "ecmul2_base" else out).shape)
+        want = want[:-1] if fn == "ecmul2_base" else want
+    except (ValueError, TypeError):
+        want = None
+    batch_of = {"ecmul2_base": sec.ecmul2_batch, "ecdsa_verify": sec.verify_batch,
+                "ecdsa_recover": sec.recover_batch}[fn]
+    try:
+        got = batch_of(*leads)
+    except ValueError:
+        got = None
+    assert got == want
+
+
 def test_the_recovery_plain_path_never_reaches_the_kernel(lanes, monkeypatch):
     """``ecdsa_recover_plain`` (which ``ecrecover.recover_plain`` runs, the
     card's yardstick for the recovery kernel) and ``ecdsa_verify_plain``
@@ -265,9 +392,9 @@ def test_the_recovery_plain_path_never_reaches_the_kernel(lanes, monkeypatch):
 
 
 def test_both_entries_are_bound():
-    fns = _build.SIGNATURES["secp256k1_recover"]
-    assert {"secp256k1_recover", "secp256k1_ecmul2", "secp256k1_verify"} <= set(fns)
-    text = (_build.CSRC / "secp256k1_recover.cu").read_text()
+    assert set(_build.SIGNATURES["secp256k1_ecmul2"]) == {"secp256k1_ecmul2", "secp256k1_verify"}
+    assert set(_build.SIGNATURES["secp256k1_recover"]) == {"secp256k1_recover"}
+    text = (_build.CSRC / "secp256k1_ecmul2.cu").read_text()
     # The kernels' names keep clear of the recovery kernel's, which the
     # profiler's per-kernel split matches by substring.
     for kernel in ("secp256k1_ecmul2_kernel", "secp256k1_verify_kernel"):
