@@ -210,6 +210,7 @@ class SyncClient:
         blocks = [b for b in blocks if b.cert is None]
         if not blocks:
             return
+        t0 = trace.now_us()
         groups: Dict[tuple, List[int]] = {}
         snapshots: List[Mapping[bytes, int]] = []
         heights: List[int] = []
@@ -221,6 +222,8 @@ class SyncClient:
             groups[key].append(i)
             snapshots.append(powers)
             heights.append(block.height)
+        if t0 is not None:
+            trace.complete("sync.group", t0, heights=len(blocks))
 
         masks: List[Optional[np.ndarray]] = [None] * len(blocks)
         total_lanes = sum(len(b.seals) for b in blocks)
@@ -231,6 +234,7 @@ class SyncClient:
             drains=len(groups),
         ):
             for idxs in groups.values():
+                t0 = trace.now_us()
                 lanes: List[Tuple[bytes, CommittedSeal]] = []
                 spans: List[Tuple[int, int, int]] = []  # (block idx, lo, hi)
                 for i in idxs:
@@ -241,6 +245,8 @@ class SyncClient:
                         (proposal_hash, seal) for seal in block.seals
                     )
                     spans.append((i, lo, len(lanes)))
+                if t0 is not None:
+                    trace.complete("sync.lanes", t0, heights=len(idxs), lanes=len(lanes))
                 if not lanes:
                     for i in idxs:
                         masks[i] = np.zeros(0, dtype=bool)
@@ -257,20 +263,25 @@ class SyncClient:
                 for i, lo, hi in spans:
                     masks[i] = mask[lo:hi]
 
-        for block, mask, powers in zip(blocks, masks, snapshots):
-            valid_signers = {
-                seal.signer
-                for seal, ok in zip(block.seals, mask)
-                if bool(ok)
-            }
-            quorum = calculate_quorum(sum(powers.values()))
-            got = sum(powers.get(a, 0) for a in valid_signers)
-            if got < quorum:
-                raise SyncError(
-                    f"height {block.height}: committed-seal power {got} < "
-                    f"quorum {quorum} ({int(mask.sum())}/{len(block.seals)} "
-                    "seals valid)"
-                )
+        t0 = trace.now_us()
+        try:
+            for block, mask, powers in zip(blocks, masks, snapshots):
+                valid_signers = {
+                    seal.signer
+                    for seal, ok in zip(block.seals, mask)
+                    if bool(ok)
+                }
+                quorum = calculate_quorum(sum(powers.values()))
+                got = sum(powers.get(a, 0) for a in valid_signers)
+                if got < quorum:
+                    raise SyncError(
+                        f"height {block.height}: committed-seal power {got} < "
+                        f"quorum {quorum} ({int(mask.sum())}/{len(block.seals)} "
+                        "seals valid)"
+                    )
+        finally:
+            if t0 is not None:
+                trace.complete("sync.quorum", t0, heights=len(blocks))
 
     def _verify_cert_blocks(self, blocks: Sequence[FinalizedBlock]) -> None:
         """Batched verification of certificate-carrying blocks.

@@ -48,6 +48,7 @@ from typing import List, Optional
 
 from ..messages.helpers import CommittedSeal
 from ..messages.wire import PreparedCertificate, Proposal
+from ..obs import trace
 from ..utils import metrics
 
 # Fixed-bucket append latency (fsync included) for the /metrics endpoint;
@@ -178,7 +179,10 @@ class WriteAheadLog:
             fh.write(line.encode())
             fh.flush()
             if fsync:
+                ts = trace.now_us()
                 os.fsync(fh.fileno())
+                if ts is not None:
+                    trace.complete("wal.fsync", ts, kind=record.get("kind"))
         if t0 is not None:
             metrics.observe_fixed(
                 WAL_APPEND_MS_KEY, (time.perf_counter() - t0) * 1e3

@@ -1865,10 +1865,17 @@ class IBFT:
             )
         self.transport.multicast(message)
 
+    # Each send is an ``engine.send`` span while tracing: the message built
+    # and signed through the backend, then multicast.
+
     def _send_preprepare_message(self, message: IbftMessage) -> None:
+        t0 = trace.now_us()
         self._multicast(message)
+        if t0 is not None:
+            trace.complete("engine.send", t0, track=self._obs_track, type="PREPREPARE")
 
     def _send_round_change_message(self, height: int, new_round: int) -> None:
+        t0 = trace.now_us()
         self._multicast(
             self.backend.build_round_change_message(
                 self.state.latest_prepared_proposal,
@@ -1876,13 +1883,21 @@ class IBFT:
                 View(height=height, round=new_round),
             )
         )
+        if t0 is not None:
+            trace.complete("engine.send", t0, track=self._obs_track, type="ROUND_CHANGE")
 
     def _send_prepare_message(self, view: View) -> None:
+        t0 = trace.now_us()
         self._multicast(
             self.backend.build_prepare_message(self.state.proposal_hash or b"", view)
         )
+        if t0 is not None:
+            trace.complete("engine.send", t0, track=self._obs_track, type="PREPARE")
 
     def _send_commit_message(self, view: View) -> None:
+        t0 = trace.now_us()
         self._multicast(
             self.backend.build_commit_message(self.state.proposal_hash or b"", view)
         )
+        if t0 is not None:
+            trace.complete("engine.send", t0, track=self._obs_track, type="COMMIT")

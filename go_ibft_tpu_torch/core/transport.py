@@ -139,6 +139,10 @@ class BatchingIngress:
         # timed window for nothing).
         self._recent: deque = deque()
         self._recent_n = 0
+        # While tracing: (start µs, window s) of the wait the buffered
+        # messages make for their flush (window 0: the end of the event
+        # loop's tick), for the flush's ``ingress.window``.
+        self._opened: Optional[tuple] = None
 
     def _trim_recent(self, now: float) -> None:
         while self._recent and now - self._recent[0][0] > self.max_delay:
@@ -148,13 +152,7 @@ class BatchingIngress:
         """The timed-window wait: calibrated projection, ceiling-clamped."""
         if self.calibrator is None:
             return self.max_delay
-        window = self.calibrator.window(len(self._buffer), self.max_batch)
-        trace.instant(
-            "ingress.calibrate",
-            window_us=round(window * 1e6, 1),
-            pending=len(self._buffer),
-        )
-        return window
+        return self.calibrator.window(len(self._buffer), self.max_batch)
 
     def submit(self, message: IbftMessage) -> None:
         self._buffer.append(message)
@@ -163,16 +161,18 @@ class BatchingIngress:
         if len(self._buffer) >= self.max_batch:
             self.flush()
         elif self._handle is None:
+            t0 = trace.now_us()
             loop = asyncio.get_running_loop()
             self._trim_recent(time.monotonic())
+            window = 0.0
             if self._recent_n + len(self._buffer) >= self.eager_cutover:
                 window = self._window()
-                if window > 0:
-                    self._handle = loop.call_later(window, self.flush)
-                else:
-                    self._handle = loop.call_soon(self.flush)
+            if window > 0:
+                self._handle = loop.call_later(window, self.flush)
             else:
                 self._handle = loop.call_soon(self.flush)
+            if t0 is not None:
+                self._opened = (t0, window)
 
     def flush(self) -> None:
         if self._handle is not None:
@@ -181,6 +181,14 @@ class BatchingIngress:
         if not self._buffer:
             return
         batch, self._buffer = self._buffer, []
+        opened, self._opened = self._opened, None
+        if opened is not None:
+            trace.complete(
+                "ingress.window",
+                opened[0],
+                lanes=len(batch),
+                window_us=round(opened[1] * 1e6, 1),
+            )
         now = time.monotonic()
         self._recent.append((now, len(batch)))
         self._recent_n += len(batch)
@@ -193,3 +201,4 @@ class BatchingIngress:
             self._handle.cancel()
             self._handle = None
         self._buffer.clear()
+        self._opened = None

@@ -29,6 +29,8 @@ import enum
 from dataclasses import dataclass, field
 from typing import Optional, Union
 
+from ..obs import trace
+
 
 class MessageType(enum.IntEnum):
     """Message types (reference messages/proto/messages.proto:7-12)."""
@@ -363,7 +365,7 @@ class PreparedCertificate(_Decodable):
             raw, pos = _read_bytes(buf, pos)
             if self.prepare_messages is None:
                 self.prepare_messages = []
-            self.prepare_messages.append(IbftMessage.decode(raw))
+            self.prepare_messages.append(_nested_message(raw))
             return pos
         return None
 
@@ -383,9 +385,17 @@ class RoundChangeCertificate(_Decodable):
     def _merge_field(self, fnum, wtype, buf, pos):
         if fnum == 1 and wtype == _WIRE_LEN:
             raw, pos = _read_bytes(buf, pos)
-            self.round_change_messages.append(IbftMessage.decode(raw))
+            self.round_change_messages.append(_nested_message(raw))
             return pos
         return None
+
+
+def _nested_message(raw: bytes) -> "IbftMessage":
+    """A message carried inside a certificate, decoded within its
+    envelope's ``wire.decode`` span."""
+    msg = IbftMessage()
+    msg.merge_from(raw)
+    return msg
 
 
 _PAYLOAD_ATTRS = {
@@ -422,6 +432,16 @@ class IbftMessage(_Decodable):
     prepare_data: Optional[PrepareMessage] = None
     commit_data: Optional[CommitMessage] = None
     round_change_data: Optional[RoundChangeMessage] = None
+
+    @classmethod
+    def decode(cls, buf: bytes) -> "IbftMessage":
+        """One message from its wire bytes: a ``wire.decode`` span while
+        tracing (the messages a certificate carries decode inside it)."""
+        t0 = trace.now_us()
+        msg = super().decode(buf)
+        if t0 is not None:
+            trace.complete("wire.decode", t0)
+        return msg
 
     def encode(self, *, include_signature: bool = True) -> bytes:
         out = bytearray()

@@ -9,6 +9,11 @@ Usage at a hot seam::
 
     trace.instant("round.timeout", round=r)
 
+    t0 = trace.now_us()          # None while tracing is off
+    ...work whose args are known only at its end...
+    if t0 is not None:
+        trace.complete("sched.pack", t0, senders=n)
+
 Design rules:
 
 * **Disabled mode is one predicate check.**  ``span()`` and ``instant()``
@@ -16,7 +21,10 @@ Design rules:
   shared no-op context manager / return immediately.  No clock reads, no
   contextvar touches, no allocation beyond the caller's kwargs dict.
   The bench contract pins the resulting overhead at < 5% of the config #1
-  happy path (``tests/test_bench_contract.py``).
+  happy path (``tests/test_bench_contract.py``).  ``now_us()`` is the same
+  one check, and returns None without reading the clock; a site guards its
+  ``complete()`` call on that None, so that it evaluates no argument
+  either.
 * **Thread-safe.**  The recorder is a lock-guarded ring
   (:class:`~go_ibft_tpu_torch.obs.recorder.RingRecorder`); spans may open and
   close on transport threads, worker pools, and the engine loop
@@ -47,6 +55,8 @@ __all__ = [
     "recorder",
     "span",
     "instant",
+    "now_us",
+    "complete",
     "set_track",
     "next_span_id",
 ]
@@ -187,3 +197,25 @@ def instant(name: str, track: Optional[str] = None, **args) -> None:
             args or None,
         )
     )
+
+
+def now_us() -> Optional[int]:
+    """The recorder's clock (``perf_counter_ns() // 1000``, the clock of
+    every record), or None while tracing is off: a span's start for
+    :func:`complete`, read only while tracing is on."""
+    if _recorder is None:
+        return None
+    return time.perf_counter_ns() // 1000
+
+
+def complete(name: str, start_us: int, track: Optional[str] = None, **args) -> Optional[int]:
+    """Record a span from ``start_us`` (a :func:`now_us` reading) to now,
+    for a site whose start or args are known only when the work is done.
+    Returns the span's end, the start of a span that follows it, or None
+    while tracing is off (nothing is recorded)."""
+    rec = _recorder
+    if rec is None:
+        return None
+    end = time.perf_counter_ns() // 1000
+    rec.append(("X", name, _resolve_track(track), start_us, end - start_us, args or None))
+    return end

@@ -65,10 +65,11 @@ from ..verify.batch import (
     _as_signed,
     _bucket,
     _DigestLanes,
+    launch_sender_digest_rows,
     pack_seal_lanes,
-    pack_sender_digest_rows,
     pack_sender_lanes,
     pack_validator_table,
+    upload_sender_lanes,
 )
 from ..verify.mesh_batch import mesh_verify_mask
 from ..verify.pipeline import PackCache, SenderPack
@@ -336,6 +337,7 @@ class CoalescedDispatcher:
         sender_ok = np.zeros(len(msgs), dtype=bool)
         seal_ok = np.zeros(len(lanes), dtype=bool)
         if msgs:
+            t0 = trace.now_us()
             # Lookups are pre-routed per tenant; stores route back through
             # the owners shim.  The digest sequence (the digest kernel,
             # oversize payloads digested on the host) is the single-tenant
@@ -360,9 +362,18 @@ class CoalescedDispatcher:
             if self.mesh is not None:
                 sender_ok = self._mesh_sig_mask(packed, table)[: len(msgs)]
             else:
-                inputs = pack_sender_digest_rows(packed, self._upload)
+                # Every field goes up before the digest launch, so that
+                # ``sched.pack`` ends where the card's work begins.
+                up = upload_sender_lanes(packed, self._upload)
+                table = self._upload("table", table)
+                if t0 is not None:
+                    t0 = trace.complete("sched.pack", t0, senders=len(msgs), seals=0)
+                inputs = launch_sender_digest_rows(packed, up)
                 sender_ok = self._sig_mask(inputs, table)[: len(msgs)]
+                if t0 is not None:
+                    trace.complete("sched.card", t0, lanes=len(msgs), padded=len(packed.live))
         if lanes:
+            t0 = trace.now_us()
             packed = pack_seal_lanes(list(lanes), pad_lanes=self._pad_lanes(len(lanes)))
             table = pack_validator_table(
                 list(dict.fromkeys(seal.signer for _h, seal in lanes))
@@ -374,19 +385,25 @@ class CoalescedDispatcher:
                     self._upload(name, a)
                     for name, a in zip(("zw", "r", "s", "v", "claimed", "live"), packed)
                 )
+                table = self._upload("table", table)
+                if t0 is not None:
+                    t0 = trace.complete("sched.pack", t0, senders=0, seals=len(lanes))
                 seal_ok = self._sig_mask(inputs, table)[: len(lanes)]
+                if t0 is not None:
+                    trace.complete("sched.card", t0, lanes=len(lanes), padded=len(packed[-1]))
         return sender_ok, seal_ok
 
-    def _sig_mask(self, inputs, table: np.ndarray) -> np.ndarray:
+    def _sig_mask(self, inputs, table: torch.Tensor) -> np.ndarray:
         """One signature-validity launch of the recovery kernel and one of
-        ``certify_lanes`` (the membership, no phase) over uploaded lanes."""
+        ``certify_lanes`` (the membership, no phase) over uploaded lanes
+        and table, and the mask read back."""
         with cost_ledger.dispatch_span(
             "ecdsa_recover",
             route="device",
             live_mask=inputs[-1].cpu().numpy() if cost_ledger.enabled() else None,
             site="sched/dispatch.py:_device",
         ):
-            mask = RECOVER_KERNEL(inputs, self._upload("table", table))
+            mask = RECOVER_KERNEL(inputs, table)
             return mask.cpu().numpy()
 
     def _mesh_sig_mask(self, lanes, table: np.ndarray) -> np.ndarray:

@@ -647,7 +647,7 @@ class TenantScheduler:
         ts = [t.queue[0].submitted_at for t in self._tenants.values() if t.queue]
         return min(ts) if ts else None
 
-    def _window_locked(self) -> float:
+    def _window_locked(self) -> Tuple[float, Optional[float]]:
         """The coalescing window for the current backlog, from the
         measured AGGREGATE arrival rate (per-tenant EWMA models summed
         over tenants with queued work) through the shared
@@ -656,9 +656,10 @@ class TenantScheduler:
         ``window_s`` ceiling, the ceiling when a sustained flood merely
         cannot fill ALL of it, eager (0) only when the ceiling would
         gain almost nothing.  Falls back to the fixed ``window_s`` when
-        no rate has been measured yet."""
+        no rate has been measured yet.  Returns ``(window, rate)``, the
+        rate None where the window is not calibrated."""
         if not self.calibrate:
-            return self.window_s
+            return self.window_s, None
         from ..utils.calibration import calibrated_window
 
         rate = 0.0
@@ -673,14 +674,7 @@ class TenantScheduler:
             self.max_dispatch_lanes,
             self.window_s,
         )
-        trace.instant(
-            "ingress.calibrate",
-            scope="sched",
-            window_us=round(window * 1e6, 1),
-            rate_per_s=round(rate, 1),
-            pending=self._pending_lanes,
-        )
-        return window
+        return window, rate
 
     def _loop(self) -> None:
         while True:
@@ -695,15 +689,21 @@ class TenantScheduler:
                 # Demand-aware window: flush at bucket-full, or when the
                 # oldest queued request ages past the (arrival-calibrated)
                 # window.  Idle tenants contribute no requests and thus no
-                # delay.
+                # delay.  ``sched.window`` spans this wait.
+                t0 = trace.now_us()
+                window = rate = None
+                why = "stop"
                 while self._running and not self._paused:
                     if self._pending_lanes >= self.max_dispatch_lanes:
+                        why = "full"
                         break
                     oldest = self._oldest_ts_locked()
                     if oldest is None:
                         break
-                    wait = oldest + self._window_locked() - time.monotonic()
+                    window, rate = self._window_locked()
+                    wait = oldest + window - time.monotonic()
                     if wait <= 0:
+                        why = "aged"
                         break
                     self._cv.wait(timeout=wait)
                     if self._pending_reqs == 0:
@@ -715,6 +715,16 @@ class TenantScheduler:
                     if batch:
                         self._inflight += 1
             if batch:
+                if t0 is not None:
+                    trace.complete(
+                        "sched.window",
+                        t0,
+                        requests=len(batch),
+                        lanes=sum(r.lanes for r in batch),
+                        window_us=None if window is None else round(window * 1e6, 1),
+                        rate_per_s=None if rate is None else round(rate, 1),
+                        why=why,
+                    )
                 try:
                     self._flush(batch)
                 finally:

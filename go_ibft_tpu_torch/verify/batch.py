@@ -668,6 +668,31 @@ def pack_sender_digest_rows(
     )
 
 
+_SENDER_UPLOADS = ("blocks", "counts", "r", "s", "v", "claimed", "live")
+
+
+def upload_sender_lanes(
+    lanes: _SenderLanes, upload: Callable[[str, np.ndarray], torch.Tensor]
+) -> Dict[str, torch.Tensor]:
+    """The upload half of :func:`pack_sender_digest_rows`: every host array
+    it takes to the device (the oversize payloads' host digests as
+    ``big_zw``), uploaded now and returned by name.  For a caller whose
+    uploads all precede the chunk's first launch, which then launches with
+    :func:`launch_sender_digest_rows`."""
+    up = {name: upload(name, getattr(lanes, name)) for name in _SENDER_UPLOADS}
+    if lanes.big:
+        up["big_zw"] = upload("big_zw", lanes.big_zw)
+    return up
+
+
+def launch_sender_digest_rows(
+    lanes: _SenderLanes, uploaded: Mapping[str, torch.Tensor]
+) -> Tuple[torch.Tensor, ...]:
+    """The launch half: :func:`pack_sender_digest_rows` over the tensors of
+    :func:`upload_sender_lanes`.  Returns ``(zw, r, s, v, claimed, live)``."""
+    return pack_sender_digest_rows(lanes, lambda name, _a: uploaded[name])
+
+
 def _threshold(thr: int) -> Tuple[int, int]:
     thr = max(thr, 0)
     return thr & 0xFFFF, thr >> 16

@@ -116,9 +116,25 @@ def test_scripted_spans_export_and_report_identically(obs_modules, tmp_path, mon
     assert ours["splits"][0]["verify_us"] > 0 and "height 2" in ours["report"]
 
 
+# Spans the port records where its host work happens, which the JAX
+# package does not have: taken out of the port's recorder before its
+# export, after checking that they are there.
+PORT_ONLY = {"engine.send", "ingress.window", "wal.fsync"}
+
+
+def _drop_port_only(recorder):
+    records = recorder.snapshot()
+    assert PORT_ONLY <= {r[1] for r in records}
+    recorder.clear()
+    for record in records:
+        if record[1] not in PORT_ONLY:
+            recorder.append(record)
+
+
 def test_chain_runner_traces_export_and_report_identically(obs_modules, tmp_path, monkeypatch, virtual_clocks):
     """A 4-node chain, 3 heights, with the recorder on the virtual clock:
-    every node's ``export_trace`` file and the timeline of node 3's."""
+    every node's ``export_trace`` file (the port's without its own spans,
+    ``PORT_ONLY``) and the timeline of node 3's."""
     results = []
     for name in PACKAGES:
         mods = obs_modules[name]
@@ -133,6 +149,8 @@ def test_chain_runner_traces_export_and_report_identically(obs_modules, tmp_path
             return cluster
 
         cluster = run_virtual(body())
+        if name == PACKAGES[0]:
+            _drop_port_only(mods["trace"].recorder())
         files = []
         for i, runner in sorted(cluster.runners.items()):
             path = str(tmp_path / f"{name}-{i}.json")
